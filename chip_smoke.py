@@ -19,8 +19,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      through eager ``cp_als(impl="kernel")`` (5 sweeps) and
      ``cp_als_fused`` with 4 batched restarts (5 sweeps, one sync); the
      launch counter must show one kernel launch per mode per sweep in each;
-  4. per-mode kernel times (CUDA events, median of 10) against the plain
-     version and the least time the card could take for the same bytes;
+  4. per mode at full size, the kernel against its plain version with one
+     restart and with 4 restarts whose factors differ, then kernel times
+     (CUDA events, median of 10) against the plain version and the least
+     time the card could take for the bytes the function needs;
   5. a ``torch.profiler`` trace of one eager sweep: device time by kernel
      and the device's idle share.
 
@@ -216,9 +218,13 @@ def profile_sweep(tensor, dev, sweep_ms: float) -> None:
 
 
 def mttkrp_bytes(plan, rank: int) -> int:
-    """Each input read once, each output written once (factor values in float32)."""
+    """Each input the function needs read once, each output written once
+    (factor values in float32).  Per nonzero it needs N-1 gather indices, one
+    output-row index and the value: the plan stores the row twice (as
+    ``local_row`` and as the output mode's column of the indices), and the
+    second copy is not counted."""
     n = len(plan.shape)
-    stream = plan.nnz_pad * (4 * n + 4 + 4) + (plan.num_blocks + 1) * 8
+    stream = plan.nnz_pad * (4 * (n - 1) + 4 + 4) + (plan.num_blocks + 1) * 8
     factors = sum(plan.shape[k] * rank * 4 for k in range(n) if k != plan.mode)
     return stream + factors + plan.shape[plan.mode] * rank * 4
 
@@ -319,29 +325,39 @@ def main() -> int:
 
     # -- phase 4: per-mode kernel against plain, and times -------------------
     print("phase 4: per-mode MTTKRP at the main path's shapes "
-          f"(eager's final factors; kernel median of {TIMING_REPS})")
+          f"(B=1: eager's final factors; B={RESTARTS}: the fused run's initial factors, "
+          f"one draw per restart; kernel median of {TIMING_REPS})")
     facs = [f.contiguous() for f in eager.factors]
-    batched = [torch.stack([f] * RESTARTS).contiguous() for f in facs]
+    inits = [tcp.cp_init(tensor, RANK, seed=s, device=dev) for s in range(RESTARTS)]
+    batched = [torch.stack(per_mode).contiguous() for per_mode in zip(*inits)]
+    del inits
     rows = []
     for p in plans:
         bufs = ops.plan_device_buffers(p, dev)
         i_out = p.shape[p.mode]
         got = kmod.mttkrp_cuda(bufs, facs, p.mode, i_out)
+        got_b = kmod.mttkrp_cuda(bufs, batched, p.mode, i_out)
         torch.cuda.synchronize()
         max_abs, max_rel, ok = compare(bufs, facs, p.mode, i_out, got, F32_TOL)
+        check(got_b.shape == (RESTARTS, i_out, RANK), f"batched output shape {tuple(got_b.shape)}")
+        max_abs_b, max_rel_b, ok_b = compare(bufs, batched, p.mode, i_out, got_b, F32_TOL)
+        del got, got_b
         ms = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out), TIMING_REPS)
         ms_b = median_ms(lambda: kmod.mttkrp_cuda(bufs, batched, p.mode, i_out), TIMING_REPS)
         plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, p.mode, i_out), TIMING_REPS, 1)
         nbytes, flops = mttkrp_bytes(p, RANK), mttkrp_flops(p, RANK)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
         rows.append(dict(mode=p.mode, ms=ms, ms_b4=ms_b, plain_ms=plain, bound_ms=bound,
-                         bytes=nbytes, flops=flops, max_abs=max_abs, ok=ok))
+                         bytes=nbytes, flops=flops, max_abs=max(max_abs, max_abs_b),
+                         ok=ok and ok_b))
         print(f"  mode {p.mode}: kernel {ms:.3f} ms (B={RESTARTS}: {ms_b:.3f} ms), plain {plain:.3f} ms, "
               f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), "
-              f"share of bound {bound / ms:.4f}; max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-              f"(tol {F32_TOL:g} x scale) "
-              f"{'ok' if ok else 'FAIL'}  [{card}]")
+              f"share of bound {bound / ms:.4f}; B=1 max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+              f"{'ok' if ok else 'FAIL'}, B={RESTARTS} max_abs {max_abs_b:.3e} "
+              f"max_rel {max_rel_b:.3e} {'ok' if ok_b else 'FAIL'} (tol {F32_TOL:g} x scale)  "
+              f"[{card}]")
     check(all(r["ok"] for r in rows), "kernel disagrees with its plain version at full size")
+    del batched
     bytes_bound = all(r["bytes"] / HBM_BYTES_PER_S >= r["flops"] / F32_FLOPS_PER_S for r in rows)
 
     # -- phase 5: where the time of a sweep goes --------------------------------

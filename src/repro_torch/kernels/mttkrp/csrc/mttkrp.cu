@@ -25,9 +25,12 @@
 // store-each-output-row-once property (Algorithm 1, line 11).  A block with
 // no real nonzeros still stores zeros, so the output may start uninitialised.
 //
-// What bounds it on the H100: device-memory bytes.  Each nonzero streams
-// 4*N + 8 bytes (indices, value, local_row) and needs (N-1)*R factor values
-// that mostly hit in the 50 MB L2 (NELL-2's factors are < 4 MB at R = 16);
+// What bounds it on the H100: device-memory bytes.  Each nonzero needs
+// 4*N + 4 bytes (N-1 gather indices, its row, its value); this kernel
+// streams 4*N + 8, since the interleaved (nnz, N) index rows bring in the
+// output mode's index, which local_row already gives.  It also needs
+// (N-1)*R factor values that mostly hit in the 50 MB L2 (NELL-2's factors
+// are < 4 MB at R = 16);
 // the arithmetic (about N*R flops a nonzero) is far below the float32 peak.
 // What this simple design does about it: index and value loads are shared by
 // the rank_chunk threads of a nonzero (one broadcast transaction), factor

@@ -54,7 +54,6 @@ class PlanBuffers(NamedTuple):
     indices: torch.Tensor  # (nnz_pad, nmodes) int32
     values: torch.Tensor  # (nnz_pad,) float32
     local_row: torch.Tensor  # (nnz_pad,) int32
-    tile_block: torch.Tensor  # (num_tiles,) int32
     block_nnz_start: torch.Tensor  # (num_blocks + 1,) int64 nonzero offset per block
     rows_per_block: int
     index_bound: tuple[int, ...]  # per mode, 1 + the largest index (checked on the host)
@@ -96,7 +95,6 @@ def plan_device_buffers(plan: MTTKRPPlan, device: str | torch.device) -> PlanBuf
                 indices=torch.as_tensor(idx, dtype=torch.int32, device=dev),
                 values=torch.as_tensor(plan.sorted_values, dtype=torch.float32, device=dev),
                 local_row=torch.as_tensor(plan.local_row, dtype=torch.int32, device=dev),
-                tile_block=torch.as_tensor(plan.tile_block, dtype=torch.int32, device=dev),
                 block_nnz_start=torch.as_tensor(block_nnz_start(plan), device=dev),
                 rows_per_block=int(plan.rows_per_block),
                 index_bound=bound,

@@ -216,7 +216,6 @@ def test_plan_device_buffers_uploaded_once_with_block_offsets():
         (a.indices, plan.sorted_indices),
         (a.values, plan.sorted_values),
         (a.local_row, plan.local_row),
-        (a.tile_block, plan.tile_block),
     ]:
         np.testing.assert_array_equal(buf.numpy(), host)
     start = a.block_nnz_start.numpy()
