@@ -24,15 +24,36 @@ Phases, each of which fails the run (exit code 1, no result line):
      (CUDA events, median of 10) against the plain version and the least
      time the card could take for the bytes the function needs;
   5. a ``torch.profiler`` trace of one eager sweep: device time by kernel
-     and the device's idle share.
+     and the device's idle share;
+  6. the flash-attention kernel against its plain version on the card over
+     S in {1, 63, 64, 65, 200, 1000}, causal and not, (H, KV) in {(4, 4),
+     (4, 2), (4, 1), (16, 8)}, D in {64, 128}, B in {1, 3}, float32 and
+     bfloat16: each output row within FLASH_ROW_TOL of its own norm (see
+     ``max_row_error``), and each element within the JAX tests' 2e-5 and
+     3e-2 (absolute plus relative);
+  7. the LM main path: internlm2-1.8b at full width and depth (random
+     weights from ``init_model(seed=0)``), ``make_prefill_fn`` on B = 2,
+     S = 32768 tokens (prefill_32k's length; its batch of 32 cut to 2): one
+     warm-up and 3 timed prefills, each launching the flash kernel once per
+     layer; then the same model at S = 256 with the kernel against plain
+     dense attention, and a reduced config on the card against the CPU;
+  8. the flash kernel on layer 0's q, k, v at the main path's shape against
+     its plain version by the same two limits, two planted faults that the
+     row limit must reject (late rows scaled by 0.9; the last query tile's
+     first key tile left out), its time (CUDA events) beside the plain version's,
+     ``scaled_dot_product_attention``'s (a yardstick the port never calls)
+     and the bound, and a ``torch.profiler`` trace of one prefill.
 
 The last three lines are the card's ``name, power.limit``, a JSON object
-with the kernel's numbers, and ``{"ok": true, "device": {...}}``.  The
+with both kernels' numbers, and ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -56,11 +77,36 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import kernel as kmod  # noqa: E402
 from repro_torch.kernels.mttkrp import ops  # noqa: E402
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.data.lm_data import SyntheticLMStream  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fkmod  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import NEG_INF, max_row_error  # noqa: E402
+from repro_torch.models.attention import project_qkv  # noqa: E402
+from repro_torch.models.model_zoo import init_model, make_prefill_fn  # noqa: E402
+from repro_torch.models.transformer import forward  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
+FLASH_F32_TOL = 2e-5  # tests/test_flash_kernel.py
+# Flash output rows, ||kernel - plain|| / ||plain|| per (b, s, h).  bf16: both
+# sides round each element to bf16 (up to 2^-9 of it each, so up to 2^-8 of
+# the row's norm together) and the kernel rounds probabilities to bf16 before
+# P.V; 1e-2 leaves room over that and is 10x below a 0.9 scaling.  float32:
+# the same sums in another order, ~1e-6.
+FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+LOGITS_F32_TOL = 1e-4  # tests/test_torch_models.py
+BF16_SCALE_TOL = 5e-2  # bf16 logits: max |a - b| <= 5e-2 * max |b| (tests/test_torch_models.py)
+
+ARCH = "internlm2-1.8b"
+PREFILL_BATCH = 2  # prefill_32k's global batch of 32, cut to 2
+PREFILL_SEQ = 32_768  # prefill_32k's length
+PREFILL_REPS = 3  # timed prefills after one warm-up
+PLAIN_Q_CHUNK = 512  # query rows per step of the plain attention at full size
+FLASH_REPS = 5
 
 NELL2_DIMS = (12_100, 9_200, 28_800)  # paper Table II
 NELL2_NNZ = 76_900_000
@@ -234,35 +280,9 @@ def mttkrp_flops(plan, rank: int) -> int:
     return plan.nnz_pad * rank * (len(plan.shape) + 1)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-
-    # -- phase 1: card, versions, build ------------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = resolve_device("cuda")
-    card = card_line()
-    print(f"card: {card} | torch.cuda: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"tf32: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    t0 = time.perf_counter()
-    built = build.build_all()
-    print(f"build: {len(built)} CUDA source(s) in {time.perf_counter() - t0:.2f} s wall")
-    for lib in built.values():
-        print(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.relative_to(REPO)}")
-        for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"    {line.strip()}")
-
-    # -- phase 2: kernel against plain, small CP-ALS card vs CPU -------------
-    print("phase 2: kernel vs plain version on the card")
-    phase_kernel_cases(dev)
-
+def cp_als_phases(dev, card: str) -> dict:
+    """Phases 3-5: the CP-ALS main path at NELL-2 Table II size; the MTTKRP
+    kernel's entry of the ``kernels`` line."""
     # -- phase 3: the main path at Table II size -----------------------------
     print("phase 3: NELL-2 stand-in at Table II size, rank 16")
     t0 = time.perf_counter()
@@ -363,10 +383,8 @@ def main() -> int:
     # -- phase 5: where the time of a sweep goes --------------------------------
     print("phase 5: profile of one eager sweep")
     profile_sweep(tensor, dev, eager_s / SWEEPS * 1e3)
-    total_s = time.perf_counter() - t_start
-    print(f"total {total_s:.1f} s (host data {host_data_s:.1f} s, plans {host_plan_s:.1f} s)")
-
-    kernels = [dict(
+    print(f"  host: data {host_data_s:.1f} s, plans {host_plan_s:.1f} s")
+    kern = dict(
         name="mttkrp_block_kernel",
         route="cuda",
         source="src/repro_torch/kernels/mttkrp/csrc/mttkrp.cu",
@@ -381,7 +399,315 @@ def main() -> int:
         per="one CP-ALS sweep of MTTKRPs: modes 0-2, one restart",
         per_mode_ms=[r["ms"] for r in rows],
         per_mode_ms_b4=[r["ms_b4"] for r in rows],
-    )]
+    )
+    return kern
+
+
+def flash_cases(dev) -> None:
+    """Phase 6: the flash kernel against its plain version over edge shapes."""
+    failures, worst, worst_row, count = [], {}, {}, 0
+    for dtype, s, causal, (h, kvh), d, b in itertools.product(
+            (torch.float32, torch.bfloat16), (1, 63, 64, 65, 200, 1000), (True, False),
+            ((4, 4), (4, 2), (4, 1), (16, 8)), (64, 128), (1, 3)):
+        tol = FLASH_F32_TOL if dtype == torch.float32 else BF16_TOL
+        gen = torch.Generator(device=dev).manual_seed(s * 7 + h + d + b)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+        got = fkmod.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=causal)
+        diff = (got.float() - want.float()).abs()
+        row_err = max_row_error(got, want)
+        ok = (bool((diff <= tol + tol * want.float().abs()).all()) and got.shape == q.shape
+              and row_err <= FLASH_ROW_TOL[dtype])
+        worst[dtype] = max(worst.get(dtype, 0.0), float(diff.max()))
+        worst_row[dtype] = max(worst_row.get(dtype, 0.0), row_err)
+        count += 1
+        if not ok:
+            failures.append(f"{dtype} S={s} causal={causal} H={h} KV={kvh} D={d} B={b}")
+    for dtype, err in worst.items():
+        print(f"  {dtype}: {count // len(worst)} cases, max row error {worst_row[dtype]:.3e} "
+              f"(tol {FLASH_ROW_TOL[dtype]:g}), max |kernel - plain| {err:.3e} "
+              f"(tol {FLASH_F32_TOL if dtype == torch.float32 else BF16_TOL:g} abs + rel)")
+    check(not failures, f"flash kernel disagrees with its plain version: {failures[:10]}")
+
+
+def first_key_tile_dropped(q, k, v, rows: int, tile: int = 64) -> torch.Tensor:
+    """The plain causal attention of the last ``rows`` queries with keys
+    ``[0, tile)`` left out: what a kernel whose KV loop skipped its first
+    tile would write for them.  (B, rows, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
+    ks, vs = (t[:, tile:].float().repeat_interleave(group, dim=2) for t in (k, v))
+    scores = torch.einsum("brhd,bshd->bhrs", q[:, s - rows:].float(), ks) * d**-0.5
+    qpos = torch.arange(s - rows, s, device=q.device)
+    kpos = torch.arange(tile, s, device=q.device)
+    scores.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
+    return torch.einsum("bhrs,bshd->brhd", torch.softmax(scores, dim=-1), vs).to(q.dtype)
+
+
+def flash_full_shape_check(q, k, v) -> dict:
+    """Phase 8's comparison: the kernel on the main path's q, k, v against its
+    plain version by the row limit and by the JAX tests' elementwise one,
+    then the same readings of two planted faults, which the row limit must
+    reject: rows t >= S/2 scaled by 0.9, and the last 64 rows computed
+    without the first key tile."""
+    got = fkmod.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=True, q_chunk=PLAIN_Q_CHUNK)
+    s = q.shape[1]
+
+    def readings(out):
+        diff = (out.float() - want.float()).abs()
+        within = bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all())
+        return dict(max_abs=float(diff.max()), row=max_row_error(out, want), elementwise_ok=within)
+
+    sound = readings(got)
+    scaled = got.clone()
+    scaled[:, s // 2:] *= 0.9
+    skipped = got.clone()
+    skipped[:, s - 64:] = first_key_tile_dropped(q, k, v, 64)
+    rms = {f"rows {a}-{z - 1}": float(want[:, a:z].float().pow(2).mean().sqrt())
+           for a, z in ((0, 64), (s - 1024, s))}
+    return dict(sound=sound, rms=rms, planted={
+        "rows t >= S/2 scaled by 0.9": readings(scaled),
+        "last 64 rows without the first key tile": readings(skipped)})
+
+
+def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> int:
+    """Two products of 2*D flops per (query, key) pair the inputs need: for
+    causal attention only the triangle, S(S+1)/2 pairs per (b, h)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * d * pairs * b * h
+
+
+def prefill_matmul_flops(cfg, tokens: int) -> int:
+    """The products outside the kernel per prefill: q/k/v and output
+    projections, SwiGLU's three, and the lm_head over every position."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (2 * d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                 + 2 * cfg.num_heads * hd * d + 6 * d * cfg.d_ff)
+    return tokens * (cfg.num_layers * per_layer + 2 * d * cfg.padded_vocab)
+
+
+def logits_gap(got: torch.Tensor, want: torch.Tensor, vocab: int):
+    """(max |got - want|, max |want|) over the real vocabulary (padded
+    entries are both -1e9, where one bf16 ulp is 4e6)."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def profile_prefill(prefill, model, batch, prefill_ms: float, matmul_flops: int) -> dict:
+    """Device time of one prefill by kernel class, and the idle share of
+    ``prefill_ms`` (the unprofiled median)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(model, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    classes = {"flash": 0.0, "matmul (cuBLAS)": 0.0, "rest": 0.0}
+    for e in events:
+        name = e.key.lower()
+        if "flash_fwd" in name:
+            key = "flash"
+        elif any(t in name for t in ("gemm", "sm90_", "cutlass", "nvjet", "xmma")):
+            key = "matmul (cuBLAS)"
+        else:
+            key = "rest"
+        classes[key] += e.self_device_time_total / 1e3
+    busy = sum(classes.values())
+    print(f"  one prefill: device busy {busy:.2f} ms (profiler) of {prefill_ms:.2f} ms wall "
+          f"(unprofiled), idle share {max(0.0, 1 - busy / prefill_ms):.3f}")
+    for key, ms in classes.items():
+        print(f"    {key:<16} {ms:10.2f} ms  {ms / busy:6.1%} of device time")
+    print(f"    matmul rate: {matmul_flops:.3e} flops per prefill, "
+          f"{matmul_flops / classes['matmul (cuBLAS)'] / 1e9:.1f} TFLOP/s")
+    for e in events[:10]:
+        print(f"    {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5} {e.key[:90]}")
+    return dict(busy_ms=busy, **{k.split()[0] + "_ms": v for k, v in classes.items()})
+
+
+def lm_phases(dev, card: str) -> dict:
+    """Phases 6-8: the flash kernel's edge cases, the internlm2-1.8b prefill at
+    full width and depth, and the kernel at the main path's shape; the flash
+    kernel's entry of the ``kernels`` line."""
+    print("phase 6: flash kernel vs plain version on the card")
+    flash_cases(dev)
+
+    print(f"phase 7: {ARCH} prefill, full width and depth, B={PREFILL_BATCH} S={PREFILL_SEQ}")
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  init_model(seed=0): {cfg.param_count() / 1e9:.3f}e9 parameters (param_count), "
+          f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB "
+          f"float32, {time.perf_counter() - t0:.2f} s")
+    stream = SyntheticLMStream(cfg.vocab_size, PREFILL_SEQ, PREFILL_BATCH, seed=0)
+    batch = {"tokens": torch.from_numpy(next(stream)["tokens"]).to(dev)}
+    prefill = make_prefill_fn(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    times, walls = [], []
+    fkmod.flash_attention_cuda.launches = 0  # the main path starts here
+    for rep in range(1 + PREFILL_REPS):
+        before = fkmod.flash_attention_cuda.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        logits = prefill(model, batch)
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        grew = fkmod.flash_attention_cuda.launches - before
+        check(grew == cfg.num_layers, f"prefill {rep} launched the flash kernel {grew} times")
+        if rep:
+            times.append(start.elapsed_time(end))
+            walls.append(wall)
+    main_launches = fkmod.flash_attention_cuda.launches  # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms = float(np.median(times))
+    tokens = PREFILL_BATCH * PREFILL_SEQ
+    check(logits.shape == (PREFILL_BATCH, cfg.padded_vocab), f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite next-token logits")
+    check(bool((logits[:, cfg.vocab_size:] < -1e8).all()), "padded vocabulary not masked")
+    print(f"  prefill: median {prefill_ms:.2f} ms (CUDA events; runs {[round(t, 2) for t in times]}), "
+          f"host wall {[round(w, 2) for w in walls]} ms, {tokens / prefill_ms * 1e3:.0f} tokens/s; "
+          f"flash launches {main_launches} over {1 + PREFILL_REPS} prefills "
+          f"({cfg.num_layers} each); peak device memory {peak_gb:.2f} GB  [{card}]")
+    print(f"  next-token argmax {logits.float().argmax(-1).tolist()}, "
+          f"max |logit| {float(logits[:, :cfg.vocab_size].float().abs().max()):.3f}")
+    del logits
+
+    # The same model at S = 256: the kernel (blocked) against plain torch (dense).
+    short = {"tokens": torch.from_numpy(next(SyntheticLMStream(cfg.vocab_size, 256, 2, seed=1))
+                                        ["tokens"]).to(dev)}
+    with torch.inference_mode():
+        blocked = forward(model, dataclasses.replace(cfg, attention_impl="blocked"), short)
+        dense = forward(model, dataclasses.replace(cfg, attention_impl="dense"), short)
+    gap, scale = logits_gap(blocked, dense, cfg.vocab_size)
+    print(f"  S=256 full model, blocked (kernel) vs dense (plain torch): max |gap| {gap:.4f} "
+          f"of max |logit| {scale:.3f} (tol {BF16_SCALE_TOL} x scale)")
+    check(gap <= BF16_SCALE_TOL * scale, "blocked and dense logits differ at S=256")
+    del blocked, dense
+
+    # A reduced config: the port's forward on the card against the CPU.
+    for dtype, tol in ((torch.float32, None), (torch.bfloat16, BF16_SCALE_TOL)):
+        small = reduced_config(ARCH, num_kv_heads=2, attention_impl="blocked", dtype=dtype)
+        small_model = init_model(small, seed=1, device="cpu")
+        toks = {"tokens": next(SyntheticLMStream(small.vocab_size, 300, 2, seed=2))["tokens"]}
+        with torch.inference_mode():
+            want = forward(small_model, small, toks)
+            got = forward(small_model.to(dev), small, toks).cpu()  # moves the module
+        gap, scale = logits_gap(got, want, small.vocab_size)
+        limit = LOGITS_F32_TOL if tol is None else tol * scale
+        print(f"  reduced config {dtype}: card vs CPU max |gap| {gap:.3e} of max |logit| "
+              f"{scale:.3f} (limit {limit:.3e})")
+        check(gap <= limit, f"reduced-config forward in {dtype}: card differs from CPU")
+
+    print("phase 8: the flash kernel at the main path's shape (layer 0's q, k, v)")
+    layer = model.layers[0]
+    with torch.inference_mode():
+        x = model.embed[batch["tokens"].long()].to(cfg.dtype)
+        q, k, v = project_qkv(layer.attn.params(), cfg, layer.ln1(x, cfg.norm_eps))
+    del x
+    b, s, h, d = q.shape
+    found = flash_full_shape_check(q, k, v)
+    sound, row_tol = found["sound"], FLASH_ROW_TOL[q.dtype]
+    ok = sound["row"] <= row_tol and sound["elementwise_ok"]
+    print(f"  q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, over all (b, h): max row error "
+          f"{sound['row']:.3e} (tol {row_tol:g}), max |kernel - plain| {sound['max_abs']:.3e} "
+          f"(tol {BF16_TOL:g} abs + rel: {'ok' if sound['elementwise_ok'] else 'FAIL'}) "
+          f"{'ok' if ok else 'FAIL'}")
+    print("  rms of the plain output: " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in found["rms"].items()))
+    check(ok, "flash kernel disagrees with its plain version at the main path's shape")
+    for fault, r in found["planted"].items():
+        print(f"  planted fault, {fault}: max row error {r['row']:.3e} "
+              f"({'rejected' if r['row'] > row_tol else 'NOT rejected'}); the elementwise "
+              f"tol alone would {'pass' if r['elementwise_ok'] else 'reject'} it")
+        check(r["row"] > row_tol, f"the row limit does not reject a planted fault: {fault}")
+    ms = median_ms(lambda: fkmod.flash_attention_cuda(q, k, v, causal=True), FLASH_REPS)
+    plain_ms = median_ms(
+        lambda: flash_attention_plain(q, k, v, causal=True, q_chunk=PLAIN_Q_CHUNK), 3, 1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), FLASH_REPS)
+    flops = attention_flops(b, s, h, d, True)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / BF16_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    print(f"  kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.1f} ms, "
+          f"SDPA {library_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} ({flops:.3e} flops "
+          f"at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s), share of bound "
+          f"{bound_ms / ms:.3f}  [{card}]")
+    del q, k, v, qt, kt, vt
+    prof = profile_prefill(prefill, model, batch, prefill_ms,
+                           prefill_matmul_flops(cfg, PREFILL_BATCH * PREFILL_SEQ))
+    return dict(
+        name="flash_fwd_bf16_kernel",
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:24",
+        launches=main_launches,
+        max_abs_err=sound["max_abs"],
+        max_row_err=sound["row"],
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        library_ms=library_ms,
+        per=f"one layer's causal attention, B={b} S={s} H={h} KV={cfg.num_kv_heads} D={d} bf16",
+        launches_per_prefill=cfg.num_layers,
+        prefill_ms=prefill_ms,
+        prefill_tokens_per_s=tokens / prefill_ms * 1e3,
+        prefill_peak_gb=peak_gb,
+        prefill_profile_ms=prof,
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+
+    # -- phase 1: card, versions, build ------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device("cuda")
+    card = card_line()
+    print(f"card: {card} | torch.cuda: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"tf32: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    print(f"build: {len(built)} CUDA source(s) in {time.perf_counter() - t0:.2f} s wall")
+    for lib in built.values():
+        print(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.relative_to(REPO)}")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"    {line.strip()}")
+
+    # -- phase 2: kernel against plain, small CP-ALS card vs CPU -------------
+    print("phase 2: kernel vs plain version on the card")
+    phase_kernel_cases(dev)
+
+    mttkrp_entry = cp_als_phases(dev, card)
+    gc.collect()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ops.clear_caches()  # the memos pin the NELL-2 plans' device buffers
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory held after the CP-ALS phases: {held_gb:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after clearing the plan memos")
+    flash_entry = lm_phases(dev, card)
+    total_s = time.perf_counter() - t_start
+    print(f"total {total_s:.1f} s")
+    kernels = [mttkrp_entry, flash_entry]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

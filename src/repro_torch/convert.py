@@ -16,8 +16,10 @@ import torch
 from repro_torch.core.cp_als import CPState
 from repro_torch.core.sparse_tensor import MTTKRPPlan
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 
-__all__ = ["cpstate_to_numpy", "factors_from_numpy", "plan_from_numpy"]
+__all__ = ["cpstate_to_numpy", "factors_from_numpy", "lm_params_from_numpy", "plan_from_numpy"]
 
 
 def factors_from_numpy(
@@ -48,3 +50,31 @@ def plan_from_numpy(plan) -> MTTKRPPlan:
         fields[name] = np.array(fields[name])
     fields["shape"] = tuple(int(s) for s in fields["shape"])
     return MTTKRPPlan(**fields)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: dict, *, device) -> Transformer:
+    """A port ``Transformer`` holding the weights of a JAX ``init_model`` pytree.
+
+    ``params`` has numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``)
+    and the JAX layout: the layer stack carries a leading ``num_layers``
+    axis, which is split into one module per layer.  Weights are stored in
+    ``cfg.param_dtype`` on ``device``.
+    """
+    dev = resolve_device(device)
+
+    def tensor(a) -> torch.Tensor:
+        arr = np.asarray(a, dtype=np.float32)
+        return torch.from_numpy(arr.copy()).to(device=dev, dtype=cfg.param_dtype)
+
+    ported = {k: _map_tree(tensor, v) for k, v in params.items() if k != "layers"}
+    stacked = _map_tree(tensor, params["layers"])
+    ported["layers"] = [
+        _map_tree(lambda t, i=i: t[i].clone(), stacked) for i in range(cfg.num_layers)
+    ]
+    return Transformer(cfg, ported)

@@ -34,6 +34,9 @@ class IdentityKeyedCache:
             return hit[1]
         return None
 
+    def clear(self) -> None:
+        self._store.clear()
+
     def put(self, anchor: Any, key: tuple, value: Any) -> Any:
         if len(self._store) >= self.max_entries:
             self._store.clear()

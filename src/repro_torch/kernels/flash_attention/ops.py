@@ -1,0 +1,56 @@
+"""Flash attention over the model's layout, dispatched by device.
+
+``flash_attention(q, k, v, causal=...)`` takes the JAX wrapper's layout,
+q ``(B, S, H, D)`` and k/v ``(B, S, KV, D)``, and returns ``(B, S, H, D)`` in
+q's dtype.  CUDA tensors launch the hand-written kernel (``kernel.py``),
+which reads the layout through strides, indexes KV heads for grouped-query
+attention and masks the ragged sequence tail itself; it raises on anything
+it does not take.  CPU tensors run the plain version (``ref.py``) after the
+JAX wrapper's GQA repeat and head-major reshape.
+
+The TPU wrapper's ``block_q``, ``block_kv`` and ``interpret`` are not part
+of this API: the CUDA kernel picks its own tiles (64 x 64 for bf16), and
+there is no interpreter.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import check_inputs, flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_plain"]
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int | None = None,
+) -> torch.Tensor:
+    """The plain version over the model's layout, on any device."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, s, d)
+    kf = k.transpose(1, 2).reshape(b * h, s, d)
+    vf = v.transpose(1, 2).reshape(b * h, s, d)
+    out = attention_ref(qf, kf, vf, causal=causal, q_chunk=q_chunk)
+    return out.reshape(b, h, s, d).transpose(1, 2).contiguous()
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+) -> torch.Tensor:
+    """Attention forward; ``(B, S, H, D)`` x ``(B, S, KV, D)`` -> ``(B, S, H, D)``."""
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
+    check_inputs(q, k, v)
+    return flash_attention_plain(q, k, v, causal=causal)

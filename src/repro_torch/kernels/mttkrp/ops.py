@@ -31,6 +31,7 @@ __all__ = [
     "PlanBuffers",
     "TensorOperands",
     "block_nnz_start",
+    "clear_caches",
     "get_plan",
     "mttkrp_from_plan",
     "mttkrp_kernel",
@@ -46,6 +47,12 @@ _BUFFER_CACHE = IdentityKeyedCache()
 # Device residency memo per (tensor, device, dtype): the raw COO operands
 # the CP fit reads.
 _OPERAND_CACHE = IdentityKeyedCache()
+
+
+def clear_caches() -> None:
+    """Drop every memoized plan and device buffer (they pin their tensors)."""
+    for cache in (_PLAN_CACHE, _BUFFER_CACHE, _OPERAND_CACHE):
+        cache.clear()
 
 
 class PlanBuffers(NamedTuple):

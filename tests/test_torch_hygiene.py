@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from repro_torch import device as tdevice
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import cp_als as tcp
 from repro_torch.core import cp_als_fused as tfused
 from repro_torch.core.sparse_tensor import random_sparse_tensor
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
+from repro_torch.models import model_zoo as tzoo
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -70,9 +73,38 @@ def test_default_device_raises_without_cuda(monkeypatch):
         tdevice.resolve_device("meta")
 
 
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tzoo.init_model(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tzoo.make_prefill_fn(cfg)
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    # A CPU tensor asks for the plain version by where it lies.
+    assert flash_attention(q, q, q).shape == q.shape
+    small = reduced_config("internlm2-1.8b")
+    model = tzoo.init_model(small, seed=0, device="cpu")
+    assert model.embed.device.type == "cpu"
+    with pytest.raises(ValueError, match="prefill runs on"):
+        tzoo.make_prefill_fn(small, device="cpu")(model.to("meta"), {"tokens": np.zeros((1, 2))})
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_calls_no_library_attention_and_no_compiler(path):
+    """The port's kernels are its own: no fused library attention, no torch.compile."""
+    text = path.read_text()
+    for name in ("scaled_dot_product_attention", "torch.compile", "cudnn", "flash_attn"):
+        assert name not in text, name
+
+
 def test_cuda_sources_and_build_directory():
     srcs = build.sources()
     assert "mttkrp" in srcs and srcs["mttkrp"].suffix == ".cu"
+    assert "flash_attention" in srcs and srcs["flash_attention"].suffix == ".cu"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.BUILD_DIR.is_relative_to(REPO)
     ignored = (REPO / ".gitignore").read_text().split()

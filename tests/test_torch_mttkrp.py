@@ -268,3 +268,13 @@ def test_mttkrp_dispatch_errors():
         tm.mttkrp(t, tf, 0, impl="ref", ordering="degree")
     with pytest.raises(NotImplementedError, match="lex"):
         tm.mttkrp(t, tf, 0, impl="kernel", ordering="degree")
+
+
+def test_clear_caches_releases_memoized_plans_and_buffers():
+    t = tst.random_sparse_tensor((12, 10, 8), 100, seed=21)
+    plan = tops.get_plan(t, 0)
+    bufs = tops.plan_device_buffers(plan, "cpu")
+    assert tops.get_plan(t, 0) is plan and tops.plan_device_buffers(plan, "cpu") is bufs
+    tops.clear_caches()
+    assert len(tops._PLAN_CACHE) == len(tops._BUFFER_CACHE) == len(tops._OPERAND_CACHE) == 0
+    assert tops.get_plan(t, 0) is not plan
