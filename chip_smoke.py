@@ -25,27 +25,35 @@ Phases, each of which fails the run (exit code 1, no result line):
      time the card could take for the bytes the function needs;
   5. a ``torch.profiler`` trace of one eager sweep: device time by kernel
      and the device's idle share;
-  6. the flash-attention kernel against its plain version on the card over
-     S in {1, 63, 64, 65, 200, 1000}, causal and not, (H, KV) in {(4, 4),
-     (4, 2), (4, 1), (16, 8)}, D in {64, 128}, B in {1, 3}, float32 and
-     bfloat16: each output row within FLASH_ROW_TOL of its own norm (see
-     ``max_row_error``), and each element within the JAX tests' 2e-5 and
-     3e-2 (absolute plus relative);
+  6. the flash-attention kernels against their plain version on the card
+     over S in {1, 63, 64, 65, 127, 129, 200, 1000}, causal and not, (H, KV)
+     in {(4, 4), (4, 2), (4, 1), (16, 8)}, D in {64, 128}, B in {1, 3},
+     float32 and bfloat16, and over q, k, v that are strided views of one
+     fused projection: each case through the kernel ``variant_for`` picks
+     (wgmma for bfloat16, the float32 kernel for float32) and each bfloat16
+     case through the ``mma.sync`` kernel too; each output row within
+     FLASH_ROW_TOL of its own norm (see ``max_row_error``), and each element
+     within the JAX tests' 2e-5 and 3e-2 (absolute plus relative);
   7. the LM main path: internlm2-1.8b at full width and depth (random
      weights from ``init_model(seed=0)``), ``make_prefill_fn`` on B = 2,
      S = 32768 tokens (prefill_32k's length; its batch of 32 cut to 2): one
-     warm-up and 3 timed prefills, each launching the flash kernel once per
-     layer; then the same model at S = 256 with the kernel against plain
-     dense attention, and a reduced config on the card against the CPU;
-  8. the flash kernel on layer 0's q, k, v at the main path's shape against
-     its plain version by the same two limits, two planted faults that the
-     row limit must reject (late rows scaled by 0.9; the last query tile's
-     first key tile left out), its time (CUDA events) beside the plain version's,
-     ``scaled_dot_product_attention``'s (a yardstick the port never calls)
-     and the bound, and a ``torch.profiler`` trace of one prefill.
+     warm-up and 3 timed prefills, each launching the wgmma flash kernel
+     once per layer (launches counted per variant); then the same model at
+     S = 256 with the kernel against plain dense attention, and a reduced
+     config on the card against the CPU;
+  8. both bfloat16 flash kernels on layer 0's q, k, v at the main path's
+     shape against their plain version by the same two limits, two planted
+     faults in the wgmma kernel's output that the row limit must reject
+     (late rows scaled by 0.9; the last 64 rows without the first 64 keys),
+     the times (CUDA events) of the wgmma kernel, the ``mma.sync`` kernel,
+     the plain version and ``scaled_dot_product_attention`` (a yardstick the
+     port never calls) beside the bound, and a ``torch.profiler`` trace of
+     one prefill.
 
 The last three lines are the card's ``name, power.limit``, a JSON object
-with both kernels' numbers, and ``{"ok": true, "device": {...}}``.  The
+with the main paths' kernels' numbers (the MTTKRP kernel and the wgmma
+flash kernel, with the ``mma.sync`` kernel's time as ``previous_ms``), and
+``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
 
@@ -107,6 +115,7 @@ PREFILL_SEQ = 32_768  # prefill_32k's length
 PREFILL_REPS = 3  # timed prefills after one warm-up
 PLAIN_Q_CHUNK = 512  # query rows per step of the plain attention at full size
 FLASH_REPS = 5
+FLASH_SEQS = (1, 63, 64, 65, 127, 129, 200, 1000)  # 127, 129, 1000: S % 128 != 0
 
 NELL2_DIMS = (12_100, 9_200, 28_800)  # paper Table II
 NELL2_NNZ = 76_900_000
@@ -119,6 +128,14 @@ TIMING_REPS = 10
 
 class SmokeFailure(Exception):
     pass
+
+
+T_START = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """Print a phase's title with the seconds since the script started."""
+    print(f"{title}  [{time.perf_counter() - T_START:.1f} s]")
 
 
 def check(cond: bool, message: str) -> None:
@@ -284,7 +301,7 @@ def cp_als_phases(dev, card: str) -> dict:
     """Phases 3-5: the CP-ALS main path at NELL-2 Table II size; the MTTKRP
     kernel's entry of the ``kernels`` line."""
     # -- phase 3: the main path at Table II size -----------------------------
-    print("phase 3: NELL-2 stand-in at Table II size, rank 16")
+    phase("phase 3: NELL-2 stand-in at Table II size, rank 16")
     t0 = time.perf_counter()
     tensor = tst.random_sparse_tensor(
         NELL2_DIMS, NELL2_NNZ, seed=0, zipf_a=NELL2_ZIPF, shuffle=True)
@@ -344,7 +361,7 @@ def cp_als_phases(dev, card: str) -> dict:
     check(gap <= fused_tol, f"fused restart 0 differs from eager by {gap}")
 
     # -- phase 4: per-mode kernel against plain, and times -------------------
-    print("phase 4: per-mode MTTKRP at the main path's shapes "
+    phase("phase 4: per-mode MTTKRP at the main path's shapes "
           f"(B=1: eager's final factors; B={RESTARTS}: the fused run's initial factors, "
           f"one draw per restart; kernel median of {TIMING_REPS})")
     facs = [f.contiguous() for f in eager.factors]
@@ -381,7 +398,7 @@ def cp_als_phases(dev, card: str) -> dict:
     bytes_bound = all(r["bytes"] / HBM_BYTES_PER_S >= r["flops"] / F32_FLOPS_PER_S for r in rows)
 
     # -- phase 5: where the time of a sweep goes --------------------------------
-    print("phase 5: profile of one eager sweep")
+    phase("phase 5: profile of one eager sweep")
     profile_sweep(tensor, dev, eager_s / SWEEPS * 1e3)
     print(f"  host: data {host_data_s:.1f} s, plans {host_plan_s:.1f} s")
     kern = dict(
@@ -404,32 +421,46 @@ def cp_als_phases(dev, card: str) -> dict:
 
 
 def flash_cases(dev) -> None:
-    """Phase 6: the flash kernel against its plain version over edge shapes."""
-    failures, worst, worst_row, count = [], {}, {}, 0
-    for dtype, s, causal, (h, kvh), d, b in itertools.product(
-            (torch.float32, torch.bfloat16), (1, 63, 64, 65, 200, 1000), (True, False),
-            ((4, 4), (4, 2), (4, 1), (16, 8)), (64, 128), (1, 3)):
-        tol = FLASH_F32_TOL if dtype == torch.float32 else BF16_TOL
-        gen = torch.Generator(device=dev).manual_seed(s * 7 + h + d + b)
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
-        got = fkmod.flash_attention_cuda(q, k, v, causal=causal)
-        torch.cuda.synchronize()
+    """Phase 6: each flash kernel against its plain version over edge shapes."""
+    def inputs():
+        for dtype, s, causal, (h, kvh), d, b in itertools.product(
+                (torch.float32, torch.bfloat16), FLASH_SEQS, (True, False),
+                ((4, 4), (4, 2), (4, 1), (16, 8)), (64, 128), (1, 3)):
+            gen = torch.Generator(device=dev).manual_seed(s * 7 + h + d + b)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+            yield f"{dtype} S={s} causal={causal} H={h} KV={kvh} D={d} B={b}", q, k, v, causal
+        # q, k, v as views of one fused projection: strided rows, q not contiguous.
+        for s, causal, d in itertools.product((129, 1000), (True, False), (64, 128)):
+            gen = torch.Generator(device=dev).manual_seed(s + d)
+            fused = torch.randn((2, s, 16 + 2 * 8, d), generator=gen, device=dev).to(torch.bfloat16)
+            q, k, v = fused[:, :, :16], fused[:, :, 16:24], fused[:, :, 24:]
+            check(not q.is_contiguous(), "the strided case's q is contiguous")
+            yield f"strided bf16 S={s} causal={causal} H=16 KV=8 D={d} B=2", q, k, v, causal
+
+    failures, worst, worst_row, count = [], {}, {}, {}
+    for name, q, k, v, causal in inputs():
+        tol = FLASH_F32_TOL if q.dtype == torch.float32 else BF16_TOL
         want = flash_attention_plain(q, k, v, causal=causal)
-        diff = (got.float() - want.float()).abs()
-        row_err = max_row_error(got, want)
-        ok = (bool((diff <= tol + tol * want.float().abs()).all()) and got.shape == q.shape
-              and row_err <= FLASH_ROW_TOL[dtype])
-        worst[dtype] = max(worst.get(dtype, 0.0), float(diff.max()))
-        worst_row[dtype] = max(worst_row.get(dtype, 0.0), row_err)
-        count += 1
-        if not ok:
-            failures.append(f"{dtype} S={s} causal={causal} H={h} KV={kvh} D={d} B={b}")
-    for dtype, err in worst.items():
-        print(f"  {dtype}: {count // len(worst)} cases, max row error {worst_row[dtype]:.3e} "
-              f"(tol {FLASH_ROW_TOL[dtype]:g}), max |kernel - plain| {err:.3e} "
-              f"(tol {FLASH_F32_TOL if dtype == torch.float32 else BF16_TOL:g} abs + rel)")
-    check(not failures, f"flash kernel disagrees with its plain version: {failures[:10]}")
+        routed = fkmod.variant_for(q.dtype, q.shape[3])
+        for variant in (routed, "mma") if q.dtype == torch.bfloat16 else (routed,):
+            got = fkmod.flash_attention_cuda(q, k, v, causal=causal, variant=variant)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            row_err = max_row_error(got, want)
+            ok = (bool((diff <= tol + tol * want.float().abs()).all()) and got.shape == q.shape
+                  and row_err <= FLASH_ROW_TOL[q.dtype])
+            worst[variant] = max(worst.get(variant, 0.0), float(diff.max()))
+            worst_row[variant] = max(worst_row.get(variant, 0.0), row_err)
+            count[variant] = count.get(variant, 0) + 1
+            if not ok:
+                failures.append(f"{variant}: {name}")
+    for variant, err in worst.items():
+        dtype = torch.float32 if variant == "f32" else torch.bfloat16
+        print(f"  {variant} kernel ({dtype}): {count[variant]} cases, max row error "
+              f"{worst_row[variant]:.3e} (tol {FLASH_ROW_TOL[dtype]:g}), max |kernel - plain| "
+              f"{err:.3e} (tol {FLASH_F32_TOL if variant == 'f32' else BF16_TOL:g} abs + rel)")
+    check(not failures, f"flash kernels disagree with their plain version: {failures[:10]}")
 
 
 def first_key_tile_dropped(q, k, v, rows: int, tile: int = 64) -> torch.Tensor:
@@ -447,12 +478,13 @@ def first_key_tile_dropped(q, k, v, rows: int, tile: int = 64) -> torch.Tensor:
 
 
 def flash_full_shape_check(q, k, v) -> dict:
-    """Phase 8's comparison: the kernel on the main path's q, k, v against its
-    plain version by the row limit and by the JAX tests' elementwise one,
-    then the same readings of two planted faults, which the row limit must
-    reject: rows t >= S/2 scaled by 0.9, and the last 64 rows computed
-    without the first key tile."""
+    """Phase 8's comparison: both bf16 kernels on the main path's q, k, v
+    against their plain version by the row limit and by the JAX tests'
+    elementwise one, then the same readings of two planted faults in the
+    wgmma kernel's output, which the row limit must reject: rows t >= S/2
+    scaled by 0.9, and the last 64 rows computed without the first 64 keys."""
     got = fkmod.flash_attention_cuda(q, k, v, causal=True)
+    previous = fkmod.flash_attention_cuda(q, k, v, causal=True, variant="mma")
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, causal=True, q_chunk=PLAIN_Q_CHUNK)
     s = q.shape[1]
@@ -462,16 +494,17 @@ def flash_full_shape_check(q, k, v) -> dict:
         within = bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all())
         return dict(max_abs=float(diff.max()), row=max_row_error(out, want), elementwise_ok=within)
 
-    sound = readings(got)
+    sound, sound_previous = readings(got), readings(previous)
+    del previous
     scaled = got.clone()
     scaled[:, s // 2:] *= 0.9
     skipped = got.clone()
     skipped[:, s - 64:] = first_key_tile_dropped(q, k, v, 64)
     rms = {f"rows {a}-{z - 1}": float(want[:, a:z].float().pow(2).mean().sqrt())
            for a, z in ((0, 64), (s - 1024, s))}
-    return dict(sound=sound, rms=rms, planted={
+    return dict(sound=sound, sound_previous=sound_previous, rms=rms, planted={
         "rows t >= S/2 scaled by 0.9": readings(scaled),
-        "last 64 rows without the first key tile": readings(skipped)})
+        "last 64 rows without the first 64 keys": readings(skipped)})
 
 
 def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> int:
@@ -532,13 +565,13 @@ def profile_prefill(prefill, model, batch, prefill_ms: float, matmul_flops: int)
 
 
 def lm_phases(dev, card: str) -> dict:
-    """Phases 6-8: the flash kernel's edge cases, the internlm2-1.8b prefill at
-    full width and depth, and the kernel at the main path's shape; the flash
-    kernel's entry of the ``kernels`` line."""
-    print("phase 6: flash kernel vs plain version on the card")
+    """Phases 6-8: the flash kernels' edge cases, the internlm2-1.8b prefill at
+    full width and depth, and both bf16 kernels at the main path's shape; the
+    wgmma flash kernel's entry of the ``kernels`` line."""
+    phase("phase 6: flash kernels vs plain version on the card")
     flash_cases(dev)
 
-    print(f"phase 7: {ARCH} prefill, full width and depth, B={PREFILL_BATCH} S={PREFILL_SEQ}")
+    phase(f"phase 7: {ARCH} prefill, full width and depth, B={PREFILL_BATCH} S={PREFILL_SEQ}")
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
     model = init_model(cfg, seed=0, device=dev)
@@ -551,7 +584,7 @@ def lm_phases(dev, card: str) -> dict:
     prefill = make_prefill_fn(cfg, device=dev)
     torch.cuda.reset_peak_memory_stats()
     times, walls = [], []
-    fkmod.flash_attention_cuda.launches = 0  # the main path starts here
+    fkmod.reset_launch_counts()  # the main path starts here
     for rep in range(1 + PREFILL_REPS):
         before = fkmod.flash_attention_cuda.launches
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -567,6 +600,7 @@ def lm_phases(dev, card: str) -> dict:
             times.append(start.elapsed_time(end))
             walls.append(wall)
     main_launches = fkmod.flash_attention_cuda.launches  # the main path ends here
+    by_variant = dict(fkmod.flash_attention_cuda.launches_by_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prefill_ms = float(np.median(times))
     tokens = PREFILL_BATCH * PREFILL_SEQ
@@ -577,6 +611,10 @@ def lm_phases(dev, card: str) -> dict:
           f"host wall {[round(w, 2) for w in walls]} ms, {tokens / prefill_ms * 1e3:.0f} tokens/s; "
           f"flash launches {main_launches} over {1 + PREFILL_REPS} prefills "
           f"({cfg.num_layers} each); peak device memory {peak_gb:.2f} GB  [{card}]")
+    per_prefill = {k_: n / (1 + PREFILL_REPS) for k_, n in by_variant.items()}
+    print(f"  flash launches per prefill by variant: {per_prefill}")
+    check(by_variant["wgmma"] == main_launches,
+          f"the prefill's flash launches did not all take the wgmma kernel: {by_variant}")
     print(f"  next-token argmax {logits.float().argmax(-1).tolist()}, "
           f"max |logit| {float(logits[:, :cfg.vocab_size].float().abs().max()):.3f}")
     del logits
@@ -607,7 +645,7 @@ def lm_phases(dev, card: str) -> dict:
               f"{scale:.3f} (limit {limit:.3e})")
         check(gap <= limit, f"reduced-config forward in {dtype}: card differs from CPU")
 
-    print("phase 8: the flash kernel at the main path's shape (layer 0's q, k, v)")
+    phase("phase 8: the bf16 flash kernels at the main path's shape (layer 0's q, k, v)")
     layer = model.layers[0]
     with torch.inference_mode():
         x = model.embed[batch["tokens"].long()].to(cfg.dtype)
@@ -615,20 +653,24 @@ def lm_phases(dev, card: str) -> dict:
     del x
     b, s, h, d = q.shape
     found = flash_full_shape_check(q, k, v)
-    sound, row_tol = found["sound"], FLASH_ROW_TOL[q.dtype]
-    ok = sound["row"] <= row_tol and sound["elementwise_ok"]
-    print(f"  q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, over all (b, h): max row error "
-          f"{sound['row']:.3e} (tol {row_tol:g}), max |kernel - plain| {sound['max_abs']:.3e} "
-          f"(tol {BF16_TOL:g} abs + rel: {'ok' if sound['elementwise_ok'] else 'FAIL'}) "
-          f"{'ok' if ok else 'FAIL'}")
+    row_tol = FLASH_ROW_TOL[q.dtype]
+    for label, sound in (("wgmma", found["sound"]), ("mma", found["sound_previous"])):
+        ok = sound["row"] <= row_tol and sound["elementwise_ok"]
+        print(f"  {label} kernel: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, over all (b, h): "
+              f"max row error {sound['row']:.3e} (tol {row_tol:g}), max |kernel - plain| "
+              f"{sound['max_abs']:.3e} (tol {BF16_TOL:g} abs + rel: "
+              f"{'ok' if sound['elementwise_ok'] else 'FAIL'}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"the {label} flash kernel disagrees with its plain version at the main path's shape")
+    sound = found["sound"]
     print("  rms of the plain output: " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in found["rms"].items()))
-    check(ok, "flash kernel disagrees with its plain version at the main path's shape")
     for fault, r in found["planted"].items():
-        print(f"  planted fault, {fault}: max row error {r['row']:.3e} "
+        print(f"  planted fault in the wgmma kernel's output, {fault}: max row error {r['row']:.3e} "
               f"({'rejected' if r['row'] > row_tol else 'NOT rejected'}); the elementwise "
               f"tol alone would {'pass' if r['elementwise_ok'] else 'reject'} it")
         check(r["row"] > row_tol, f"the row limit does not reject a planted fault: {fault}")
     ms = median_ms(lambda: fkmod.flash_attention_cuda(q, k, v, causal=True), FLASH_REPS)
+    previous_ms = median_ms(
+        lambda: fkmod.flash_attention_cuda(q, k, v, causal=True, variant="mma"), FLASH_REPS)
     plain_ms = median_ms(
         lambda: flash_attention_plain(q, k, v, causal=True, q_chunk=PLAIN_Q_CHUNK), 3, 1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -638,28 +680,34 @@ def lm_phases(dev, card: str) -> dict:
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / BF16_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
-    print(f"  kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.1f} ms, "
+    print(f"  wgmma kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), mma.sync kernel "
+          f"{previous_ms:.3f} ms ({flops / previous_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.1f} ms, "
           f"SDPA {library_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} ({flops:.3e} flops "
           f"at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s), share of bound "
-          f"{bound_ms / ms:.3f}  [{card}]")
+          f"{bound_ms / ms:.3f} (mma.sync {bound_ms / previous_ms:.3f})  [{card}]")
+    check(ms < previous_ms, f"the wgmma kernel ({ms:.3f} ms) is not faster than mma.sync "
+                            f"({previous_ms:.3f} ms)")
     del q, k, v, qt, kt, vt
     prof = profile_prefill(prefill, model, batch, prefill_ms,
                            prefill_matmul_flops(cfg, PREFILL_BATCH * PREFILL_SEQ))
     return dict(
-        name="flash_fwd_bf16_kernel",
+        name="flash_fwd_sm90_kernel",
         route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:24",
         launches=main_launches,
         max_abs_err=sound["max_abs"],
         max_row_err=sound["row"],
         ms=ms,
+        previous_ms=previous_ms,
+        previous="flash_fwd_bf16_kernel, csrc/flash_attention.cu (mma.sync)",
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
         library_ms=library_ms,
         per=f"one layer's causal attention, B={b} S={s} H={h} KV={cfg.num_kv_heads} D={d} bf16",
         launches_per_prefill=cfg.num_layers,
+        launches_by_variant=by_variant,
         prefill_ms=prefill_ms,
         prefill_tokens_per_s=tokens / prefill_ms * 1e3,
         prefill_peak_gb=peak_gb,
@@ -672,7 +720,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
 
     # -- phase 1: card, versions, build ------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -689,11 +736,13 @@ def main() -> int:
     for lib in built.values():
         print(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.relative_to(REPO)}")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if "Compiling entry function" in line:
+                print(f"    {line.split(chr(39))[1][:110]}")  # the mangled kernel name
+            elif "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"    {line.strip()}")
 
     # -- phase 2: kernel against plain, small CP-ALS card vs CPU -------------
-    print("phase 2: kernel vs plain version on the card")
+    phase("phase 2: kernel vs plain version on the card")
     phase_kernel_cases(dev)
 
     mttkrp_entry = cp_als_phases(dev, card)
@@ -705,7 +754,7 @@ def main() -> int:
     print(f"device memory held after the CP-ALS phases: {held_gb:.2f} GB, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after clearing the plan memos")
     flash_entry = lm_phases(dev, card)
-    total_s = time.perf_counter() - t_start
+    total_s = time.perf_counter() - T_START
     print(f"total {total_s:.1f} s")
     kernels = [mttkrp_entry, flash_entry]
     print(card)

@@ -1,19 +1,28 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the hand-written CUDA flash-attention kernels (``csrc/*.cu``).
 
-``flash_attention_cuda`` launches the kernel that replaces the Pallas TPU
+``flash_attention_cuda`` launches a kernel that replaces the Pallas TPU
 kernel ``repro/kernels/flash_attention/kernel.py:_kernel`` (line 24).  It
 takes CUDA tensors only and checks device, dtype, shape, strides and
-alignment, raising on anything the kernel does not take; there is no
+alignment, raising on anything the kernels do not take; there is no
 fallback.  CPU tensors go to the plain version one level up, in
 ``ops.flash_attention``.
 
-What bounds the kernel on the H100 is operations, not bytes: a causal
-``(b, h)`` needs ``4 * D * S(S+1)/2`` flops against ``8 * S * D`` bytes of
-q, k, v and o.  For bfloat16 both products run on the tensor cores
-(``mma.sync``) and scores never leave registers; float32 runs on the CUDA
-cores in full float32 (see the source's note).
+Three kernels, picked by ``variant_for(dtype, head_dim)`` and never by
+whether a launch succeeds:
 
-``flash_attention_cuda.launches`` counts the kernel launches of this process.
+* ``"wgmma"``: bfloat16 at head_dim 64 or 128 (the prefill's path),
+  ``csrc/flash_attention_sm90.cu``: TMA loads, a producer warp and wgmma;
+* ``"mma"``: bfloat16 at head_dim 32, ``csrc/flash_attention.cu``
+  (``mma.sync``);
+* ``"f32"``: float32, ``csrc/flash_attention.cu`` on the CUDA cores.
+
+What bounds the bf16 kernels on the H100 is operations, not bytes: a causal
+``(b, h)`` needs ``4 * D * S(S+1)/2`` flops against ``8 * S * D`` bytes of
+q, k, v and o.  Scores never leave registers (see the sources' notes).
+
+``flash_attention_cuda.launches`` counts the kernel launches of this
+process, and ``flash_attention_cuda.launches_by_variant`` counts them per
+variant.
 """
 
 from __future__ import annotations
@@ -24,11 +33,23 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["HEAD_DIMS", "check_inputs", "flash_attention_cuda"]
+__all__ = ["HEAD_DIMS", "VARIANTS", "WGMMA_HEAD_DIMS", "check_inputs", "flash_attention_cuda",
+           "reset_launch_counts", "variant_for"]
 
-HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (32, 64, 128)  # the head dims some kernel is built for
+WGMMA_HEAD_DIMS = (64, 128)  # flash_attention_sm90.cu's instantiations
+VARIANTS = ("wgmma", "mma", "f32")
 MAX_GRID_YZ = 65_535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def variant_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes ``dtype`` at ``head_dim``: "wgmma", "mma" or "f32"."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma"
+    raise TypeError(f"dtype {dtype}; the kernels take float32 or bfloat16")
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -50,46 +71,64 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _entry():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
+# variant -> library; ``<library>_launch`` takes the same arguments in each,
+# flash_attention.cu's with an is_bf16 flag before the stream.
+_LIBRARIES = {"wgmma": "flash_attention_sm90", "mma": "flash_attention", "f32": "flash_attention"}
+
+
+def _library(variant: str) -> tuple[ctypes.CDLL, str]:
+    name = _LIBRARIES[variant]
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        flags = [i] if name == "flash_attention" else []
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, *flags, p]
         fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return fn
+        err_string = getattr(lib, f"{name}_error_string")
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
+    return lib, name
 
 
-def _launch(q, k, v, out, *, causal: bool) -> None:
-    """Call the C entry point; raise if the launch is refused."""
+def _launch(q, k, v, out, *, causal: bool, variant: str) -> None:
+    """Call the variant's C entry point; raise if the launch is refused."""
     b, s, h, d = q.shape
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
+    lib, name = _library(variant)
+    flags = [_DTYPES[q.dtype]] if name == "flash_attention" else []
     with torch.cuda.device(q.device):
-        err = _entry()(
+        err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ctypes.cast(strides, ctypes.c_void_p),
-            b, s, h, k.shape[2], d, int(causal), _DTYPES[q.dtype],
+            ctypes.cast(strides, ctypes.c_void_p), b, s, h, k.shape[2], d, int(causal), *flags,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        msg = build.load("flash_attention").flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash-attention kernel launch failed: cudaError_t {err} ({msg})")
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(
+            f"flash-attention kernel ({variant}) launch failed: cudaError_t {err} ({msg})")
 
 
 def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    variant: str | None = None,
 ) -> torch.Tensor:
-    """Launch the kernel; returns a contiguous ``(B, S, H, D)`` tensor in q's dtype.
+    """Launch a kernel; returns a contiguous ``(B, S, H, D)`` tensor in q's dtype.
 
     q is ``(B, S, H, D)``, k and v ``(B, S, KV, D)``, all float32 or all
     bfloat16 on one CUDA device, with a contiguous last dimension, the
     other strides multiples of 16 bytes and 16-byte aligned data.  The
-    kernel runs on the current stream and is not synchronised.  There is no
-    backward: inputs that require grad under grad mode are refused.
+    kernel is ``variant_for(dtype, D)``; ``variant="mma"`` asks for the
+    ``mma.sync`` kernel at any bf16 head dim instead (to hold it against
+    the wgmma one).  It runs on the current stream and is not synchronised.
+    There is no backward: inputs that require grad under grad mode are
+    refused.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -100,11 +139,14 @@ def flash_attention_cuda(
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     check_inputs(q, k, v)
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"dtype {q.dtype}; the kernel takes float32 or bfloat16")
     b, s, h, d = q.shape
+    routed = variant_for(q.dtype, d)
+    if variant is None:
+        variant = routed
+    elif variant not in (routed, "mma") or (variant == "mma" and q.dtype != torch.bfloat16):
+        raise ValueError(f"variant {variant!r} does not take {q.dtype} at head_dim {d}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d}; the kernel is built for {HEAD_DIMS}")
+        raise ValueError(f"head_dim {d}; the kernels are built for {HEAD_DIMS}")
     if b > MAX_GRID_YZ or h > MAX_GRID_YZ or s >= 2**31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
     align = 16 // q.element_size()
@@ -120,9 +162,16 @@ def flash_attention_cuda(
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _launch(q, k, v, out, causal=causal)
+    _launch(q, k, v, out, causal=causal, variant=variant)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_variant[variant] += 1
     return out
 
 
-flash_attention_cuda.launches = 0
+def reset_launch_counts() -> None:
+    """Set the launch count and every per-variant count to 0."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launch_counts()

@@ -2,15 +2,15 @@
 
 ``flash_attention(q, k, v, causal=...)`` takes the JAX wrapper's layout,
 q ``(B, S, H, D)`` and k/v ``(B, S, KV, D)``, and returns ``(B, S, H, D)`` in
-q's dtype.  CUDA tensors launch the hand-written kernel (``kernel.py``),
+q's dtype.  CUDA tensors launch a hand-written kernel (``kernel.py``),
 which reads the layout through strides, indexes KV heads for grouped-query
 attention and masks the ragged sequence tail itself; it raises on anything
 it does not take.  CPU tensors run the plain version (``ref.py``) after the
 JAX wrapper's GQA repeat and head-major reshape.
 
 The TPU wrapper's ``block_q``, ``block_kv`` and ``interpret`` are not part
-of this API: the CUDA kernel picks its own tiles (64 x 64 for bf16), and
-there is no interpreter.
+of this API: each CUDA kernel picks its own tiles (128 x 128 for bf16 at
+head_dim 64 and 128, 64 x 64 at 32), and there is no interpreter.
 """
 
 from __future__ import annotations

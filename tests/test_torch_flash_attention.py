@@ -127,3 +127,23 @@ def test_layout_checks_raise():
         flash_attention(q, k.double(), v.double())
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,variant",
+    [
+        (torch.bfloat16, 128, "wgmma"),  # the prefill's path
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 32, "mma"),
+        (torch.float32, 128, "f32"),
+        (torch.float32, 64, "f32"),
+        (torch.float32, 32, "f32"),
+    ],
+)
+def test_variant_for_routes_by_dtype_and_head_dim(dtype, head_dim, variant):
+    assert tkernel.variant_for(dtype, head_dim) == variant
+
+
+def test_variant_for_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tkernel.variant_for(torch.float16, 128)
