@@ -9,22 +9,30 @@ Phases, each of which fails the run (exit code 1, no result line):
 
   1. the card, the versions, both TF32 flags, and the build of every CUDA
      source with nvcc for sm_90a;
-  2. the MTTKRP kernel against its plain PyTorch version on the card, over
-     the edge cases of the CPU tests (tolerance 1e-4 for float32 factors,
-     3e-2 for bfloat16, relative to the size of each output's sum: see
-     ``compare``), and the port's CP-ALS on the card against the same run
-     on the CPU (fits within FUSED_FIT_TOL);
+  2. both MTTKRP kernels (the split kernel, every call's default, and the
+     block kernel) against their plain PyTorch version on the card, over
+     the edge cases of the CPU tests and of the split kernel's partition
+     (a hot row spanning many slices, slice boundaries inside padding,
+     empty rows between slices, fewer nonzeros than slices; tolerance 1e-4
+     for float32 factors, 3e-2 for bfloat16, relative to the size of each
+     output's sum: see ``compare``), two split launches bit for bit equal,
+     and the port's CP-ALS on the card against the same run on the CPU
+     (fits within FUSED_FIT_TOL);
   3. the main path at full size: a NELL-2 stand-in at Table II size (dims
      12100 x 9200 x 28800, 76.9M drawn nonzeros, Zipf 0.85), rank 16,
      through eager ``cp_als(impl="kernel")`` (5 sweeps) and
-     ``cp_als_fused`` with 4 batched restarts (5 sweeps, one sync); the
-     launch counter must show one kernel launch per mode per sweep in each;
-  4. per mode at full size, the kernel against its plain version with one
-     restart and with 4 restarts whose factors differ, then kernel times
-     (CUDA events, median of 10) against the plain version and the least
-     time the card could take for the bytes the function needs;
+     ``cp_als_fused`` with 4 batched restarts (5 sweeps, one sync); per
+     mode the largest block's and the hottest row's share of nonzeros and
+     the split kernel's CTAs; the launch counters must show one split
+     launch per mode per sweep in each;
+  4. per mode at full size, the split kernel against its plain version
+     with one restart and with 4 restarts whose factors differ, two
+     launches bit for bit equal, then times (CUDA events, median of 10) of
+     the split kernel, the block kernel and the plain version beside the
+     least time the card could take for the bytes the function needs;
   5. a ``torch.profiler`` trace of one eager sweep: device time by kernel
-     and the device's idle share;
+     (the split kernel and its carry pass apart) and the device's idle
+     share;
   6. the flash-attention kernels against their plain version on the card
      over S in {1, 63, 64, 65, 127, 129, 200, 1000}, causal and not, (H, KV)
      in {(4, 4), (4, 2), (4, 1), (16, 8)}, D in {64, 128}, B in {1, 3},
@@ -51,8 +59,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      one prefill.
 
 The last three lines are the card's ``name, power.limit``, a JSON object
-with the main paths' kernels' numbers (the MTTKRP kernel and the wgmma
-flash kernel, with the ``mma.sync`` kernel's time as ``previous_ms``), and
+with the main paths' kernels' numbers (the split MTTKRP kernel with the
+block kernel's time as ``previous_ms``, and the wgmma flash kernel with
+the ``mma.sync`` kernel's), and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
@@ -168,8 +177,7 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 def compare(bufs, facs, mode: int, i_out: int, got: torch.Tensor, tol: float):
     """Kernel output against the plain version on the same inputs.
 
-    Both sides sum the same float32 products in different orders (the
-    kernel's shared-memory atomics land in a run-dependent order), so the
+    Both sides sum the same float32 products in different orders, so the
     error of an output element scales with the size of its sum, not with
     its value, which may cancel to near zero.  The check is therefore
     ``|got - want| <= tol * scale``, where ``scale`` is the same MTTKRP of
@@ -193,6 +201,29 @@ def factors_on(shape, rank, dev, *, batch=None, dtype=torch.float32, seed=0):
         torch.randn(lead + (s, rank), generator=gen).to(device=dev, dtype=dtype).contiguous()
         for s in shape
     ]
+
+
+def partition_edge_tensors():
+    """The split kernel's partition edges (tests/test_torch_kernel_cuda.py):
+    name -> (tensor, rank, tile_nnz, rows_per_block)."""
+    rng = np.random.default_rng(8)
+
+    def coo(rows, dims):
+        idx = np.stack([rows] + [rng.integers(0, d, rows.size) for d in dims[1:]], 1)
+        return tst.SparseTensor(idx.astype(np.int32),
+                                rng.standard_normal(rows.size).astype(np.float32), dims)
+
+    hot = coo(np.concatenate([np.zeros(200_000, np.int64), rng.integers(1, 500, 10_000)]),
+              (500, 300, 400))
+    padding = coo(np.arange(0, 32_000, 16) + rng.integers(0, 16, 2000), (32_000, 50, 60))
+    sparse_rows = coo(np.repeat(np.arange(0, 100_000, 50), 100), (100_000, 70, 90))
+    few = coo(rng.integers(0, 400, 50), (400, 30, 20))
+    return {
+        "hot row (200K of 210K nnz on row 0)": (hot, RANK, 256, 256),
+        "slice boundaries inside padding": (padding, RANK, 256, 16),
+        "empty rows between slices": (sparse_rows, RANK, 128, 64),
+        "fewer nonzeros than slices": (few, RANK, 32, 16),
+    }
 
 
 def kernel_cases():
@@ -224,25 +255,35 @@ def kernel_cases():
          8, 128, 32, None, torch.float32, F32_TOL),
         ("bf16 factors", moderate, 16, 256, 256, None, torch.bfloat16, BF16_TOL),
         ("batched factors B=4", moderate, 16, 256, 256, 4, torch.float32, F32_TOL),
-    ]
+        ("rank 13 (unaligned)", moderate, 13, 128, 32, None, torch.float32, F32_TOL),
+        ("batched factors B=5", moderate, 16, 64, 16, 5, torch.float32, F32_TOL),
+    ] + [(name, t, rank, tile, rpb, None, torch.float32, F32_TOL)
+         for name, (t, rank, tile, rpb) in partition_edge_tensors().items()]
 
 
 def phase_kernel_cases(dev) -> None:
     failures = []
+    print(f"  split kernel: {kmod.split_slices(3, 1, torch.float32, dev)} slices (warps) for "
+          f"3 modes B=1 float32, {kmod.split_slices(3, 4, torch.float32, dev)} at B=4")
     for name, t, rank, tile, rpb, batch, dtype, tol in kernel_cases():
         facs = factors_on(t.shape, rank, dev, batch=batch, dtype=dtype, seed=t.nnz)
         for mode in range(t.nmodes):
             plan = tst.build_mttkrp_plan(t, mode, tile_nnz=tile, rows_per_block=rpb)
             bufs = ops.plan_device_buffers(plan, dev)
             got = kmod.mttkrp_cuda(bufs, facs, mode, t.shape[mode])
+            again = kmod.mttkrp_cuda(bufs, facs, mode, t.shape[mode])
+            block = kmod.mttkrp_cuda(bufs, facs, mode, t.shape[mode], variant="block")
             torch.cuda.synchronize()
             max_abs, max_rel, ok = compare(bufs, facs, mode, t.shape[mode], got, tol)
+            same = torch.equal(got, again)
+            b_abs, b_rel, b_ok = compare(bufs, facs, mode, t.shape[mode], block, tol)
             print(f"  case {name:<36} mode {mode} nnz {t.nnz:>8} rank {rank:>3} "
-                  f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} tol {tol:g} x scale "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
+                  f"split max_abs {max_abs:.3e} max_rel {max_rel:.3e} {'ok' if ok else 'FAIL'}"
+                  f"{'' if same else ' (two launches DIFFER)'}, block max_rel {b_rel:.3e} "
+                  f"{'ok' if b_ok else 'FAIL'} (tol {tol:g} x scale)")
+            if not (ok and same and b_ok):
                 failures.append(f"{name} mode {mode}")
-    check(not failures, f"kernel disagrees with its plain version: {failures}")
+    check(not failures, f"a kernel disagrees with its plain version: {failures}")
 
     # The port's CP-ALS on the card (kernel) against the same run on the CPU (plain version).
     fused_tol = tfused.FUSED_FIT_TOL
@@ -276,7 +317,7 @@ def profile_sweep(tensor, dev, sweep_ms: float) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  one eager sweep: device busy {busy_ms:.2f} ms (profiler) of {sweep_ms:.2f} ms "
           f"wall (unprofiled), idle share {max(0.0, 1 - busy_ms / sweep_ms):.3f}")
-    for e in events[:8]:
+    for e in events[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4} {e.key[:90]}")
 
 
@@ -318,15 +359,23 @@ def cp_als_phases(dev, card: str) -> dict:
     ops.tensor_device_operands(tensor, device=dev)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
+    split_ctas = kmod.split_slices(tensor.nmodes, 1, torch.float32, dev) // kmod.SPLIT_WARPS_PER_CTA
     for p in plans:
-        print(f"  plan mode {p.mode}: {p.num_blocks} output blocks (CTAs for one restart), "
-              f"nnz_pad {p.nnz_pad}, padding overhead {p.padding_overhead:.6f}")
+        bufs = ops.plan_device_buffers(p, dev)
+        largest = int((bufs.block_real_end - bufs.block_nnz_start[:-1]).max())
+        hottest = int(np.bincount(tensor.indices[:, p.mode]).max())
+        print(f"  plan mode {p.mode}: {p.num_blocks} output blocks (the block kernel's CTAs for "
+              f"one restart), nnz_pad {p.nnz_pad}, padding overhead {p.padding_overhead:.6f}; "
+              f"largest block {largest / tensor.nnz:.4f} of nnz ({largest * p.num_blocks / tensor.nnz:.2f}x "
+              f"the mean), hottest row {hottest / tensor.nnz:.4f} of nnz; split kernel {split_ctas} "
+              f"CTAs x {kmod.SPLIT_WARPS_PER_CTA} slices of {p.nnz_pad / (split_ctas * kmod.SPLIT_WARPS_PER_CTA):.0f} "
+              f"nonzeros")
     print(f"  host: plans {host_plan_s:.2f} s (3 threads), upload {upload_s:.2f} s")
 
     fused_tol = tfused.FUSED_FIT_TOL
     expected = SWEEPS * tensor.nmodes
     torch.cuda.reset_peak_memory_stats()
-    kmod.mttkrp_cuda.launches = 0  # the main path starts here
+    kmod.reset_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     eager = tcp.cp_als(tensor, RANK, n_iters=SWEEPS, tol=0.0, seed=0,
                                   impl="kernel", device=dev)
@@ -340,6 +389,7 @@ def cp_als_phases(dev, card: str) -> dict:
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
     main_launches = kmod.mttkrp_cuda.launches  # the main path ends here
+    by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  eager cp_als: fits {eager.fits}")
     print(f"  eager: {eager_s:.3f} s for {SWEEPS} sweeps ({eager_s / SWEEPS * 1e3:.1f} ms/sweep "
@@ -353,6 +403,9 @@ def cp_als_phases(dev, card: str) -> dict:
     check(eager_launches == expected, f"eager launched the kernel {eager_launches} times")
     check(main_launches - eager_launches == expected,
           f"fused launched the kernel {main_launches - eager_launches} times")
+    print(f"  MTTKRP launches by variant over the main path: {by_variant}")
+    check(by_variant["split"] == main_launches,
+          f"the main path's MTTKRPs did not all take the split kernel: {by_variant}")
     check(np.isfinite(eager.fits).all() and np.isfinite(fused.fits).all(), "non-finite fit")
     check(all(f.shape == (s, RANK) and bool(torch.isfinite(f).all())
               for f, s in zip(eager.factors, tensor.shape)), "eager factors have the wrong shape or are not finite")
@@ -363,7 +416,7 @@ def cp_als_phases(dev, card: str) -> dict:
     # -- phase 4: per-mode kernel against plain, and times -------------------
     phase("phase 4: per-mode MTTKRP at the main path's shapes "
           f"(B=1: eager's final factors; B={RESTARTS}: the fused run's initial factors, "
-          f"one draw per restart; kernel median of {TIMING_REPS})")
+          f"one draw per restart; kernels median of {TIMING_REPS})")
     facs = [f.contiguous() for f in eager.factors]
     inits = [tcp.cp_init(tensor, RANK, seed=s, device=dev) for s in range(RESTARTS)]
     batched = [torch.stack(per_mode).contiguous() for per_mode in zip(*inits)]
@@ -374,6 +427,8 @@ def cp_als_phases(dev, card: str) -> dict:
         i_out = p.shape[p.mode]
         got = kmod.mttkrp_cuda(bufs, facs, p.mode, i_out)
         got_b = kmod.mttkrp_cuda(bufs, batched, p.mode, i_out)
+        same = (torch.equal(got, kmod.mttkrp_cuda(bufs, facs, p.mode, i_out))
+                and torch.equal(got_b, kmod.mttkrp_cuda(bufs, batched, p.mode, i_out)))
         torch.cuda.synchronize()
         max_abs, max_rel, ok = compare(bufs, facs, p.mode, i_out, got, F32_TOL)
         check(got_b.shape == (RESTARTS, i_out, RANK), f"batched output shape {tuple(got_b.shape)}")
@@ -381,19 +436,26 @@ def cp_als_phases(dev, card: str) -> dict:
         del got, got_b
         ms = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out), TIMING_REPS)
         ms_b = median_ms(lambda: kmod.mttkrp_cuda(bufs, batched, p.mode, i_out), TIMING_REPS)
+        block = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out, variant="block"),
+                          TIMING_REPS)
+        block_b = median_ms(
+            lambda: kmod.mttkrp_cuda(bufs, batched, p.mode, i_out, variant="block"), TIMING_REPS)
         plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, p.mode, i_out), TIMING_REPS, 1)
         nbytes, flops = mttkrp_bytes(p, RANK), mttkrp_flops(p, RANK)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-        rows.append(dict(mode=p.mode, ms=ms, ms_b4=ms_b, plain_ms=plain, bound_ms=bound,
-                         bytes=nbytes, flops=flops, max_abs=max(max_abs, max_abs_b),
-                         ok=ok and ok_b))
-        print(f"  mode {p.mode}: kernel {ms:.3f} ms (B={RESTARTS}: {ms_b:.3f} ms), plain {plain:.3f} ms, "
-              f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), "
-              f"share of bound {bound / ms:.4f}; B=1 max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-              f"{'ok' if ok else 'FAIL'}, B={RESTARTS} max_abs {max_abs_b:.3e} "
-              f"max_rel {max_rel_b:.3e} {'ok' if ok_b else 'FAIL'} (tol {F32_TOL:g} x scale)  "
-              f"[{card}]")
+        rows.append(dict(mode=p.mode, ms=ms, ms_b4=ms_b, block_ms=block, block_ms_b4=block_b,
+                         plain_ms=plain, bound_ms=bound, bytes=nbytes, flops=flops,
+                         max_abs=max(max_abs, max_abs_b), ok=ok and ok_b, same=same))
+        print(f"  mode {p.mode}: split {ms:.3f} ms (B={RESTARTS}: {ms_b:.3f} ms), block {block:.3f} ms "
+              f"(B={RESTARTS}: {block_b:.3f} ms), plain {plain:.3f} ms, bound {bound:.4f} ms "
+              f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), share of bound {bound / ms:.4f} "
+              f"(block {bound / block:.4f}), block / split {block / ms:.2f}x; B=1 max_abs "
+              f"{max_abs:.3e} max_rel {max_rel:.3e} {'ok' if ok else 'FAIL'}, B={RESTARTS} "
+              f"max_abs {max_abs_b:.3e} max_rel {max_rel_b:.3e} {'ok' if ok_b else 'FAIL'} "
+              f"(tol {F32_TOL:g} x scale); two launches bit for bit "
+              f"{'equal' if same else 'DIFFER'}  [{card}]")
     check(all(r["ok"] for r in rows), "kernel disagrees with its plain version at full size")
+    check(all(r["same"] for r in rows), "two launches of the split kernel differ")
     del batched
     bytes_bound = all(r["bytes"] / HBM_BYTES_PER_S >= r["flops"] / F32_FLOPS_PER_S for r in rows)
 
@@ -402,13 +464,15 @@ def cp_als_phases(dev, card: str) -> dict:
     profile_sweep(tensor, dev, eager_s / SWEEPS * 1e3)
     print(f"  host: data {host_data_s:.1f} s, plans {host_plan_s:.1f} s")
     kern = dict(
-        name="mttkrp_block_kernel",
+        name="mttkrp_split_kernel",
         route="cuda",
-        source="src/repro_torch/kernels/mttkrp/csrc/mttkrp.cu",
+        source="src/repro_torch/kernels/mttkrp/csrc/mttkrp_split.cu",
         replaces="src/repro/kernels/mttkrp/kernel.py:44",
         launches=main_launches,
         max_abs_err=max(r["max_abs"] for r in rows),
         ms=sum(r["ms"] for r in rows),
+        previous_ms=sum(r["block_ms"] for r in rows),
+        previous="mttkrp_block_kernel, csrc/mttkrp.cu (one CTA per output block)",
         plain_ms=sum(r["plain_ms"] for r in rows),
         bound_ms=sum(r["bound_ms"] for r in rows),
         bound_by="bytes" if bytes_bound else "operations",
@@ -416,6 +480,10 @@ def cp_als_phases(dev, card: str) -> dict:
         per="one CP-ALS sweep of MTTKRPs: modes 0-2, one restart",
         per_mode_ms=[r["ms"] for r in rows],
         per_mode_ms_b4=[r["ms_b4"] for r in rows],
+        per_mode_previous_ms=[r["block_ms"] for r in rows],
+        per_mode_previous_ms_b4=[r["block_ms_b4"] for r in rows],
+        split_ctas=split_ctas,
+        launches_by_variant=by_variant,
     )
     return kern
 

@@ -1,12 +1,24 @@
-"""Wrapper of the hand-written CUDA MTTKRP kernel (``csrc/mttkrp.cu``).
+"""Wrappers of the hand-written CUDA MTTKRP kernels.
 
-``mttkrp_cuda`` launches the kernel that replaces the Pallas TPU kernel
-``repro/kernels/mttkrp/kernel.py:_kernel``.  It takes CUDA tensors only:
-it checks device, dtype, shape and contiguity and raises on anything the
-kernel does not take; there is no fallback.  CPU tensors go to the plain
-version (``ref.mttkrp_plan_ref``) one level up, in ``ops.mttkrp_from_plan``.
+``mttkrp_cuda`` launches a kernel that replaces the Pallas TPU kernel
+``repro/kernels/mttkrp/kernel.py:_kernel``.  Two variants take the same
+plan buffers and compute the same function:
 
-``mttkrp_cuda.launches`` counts the kernel launches of this process.
+  * ``"split"`` (``csrc/mttkrp_split.cu``), every call's kernel unless the
+    caller names another: a persistent grid sized from the card, each warp
+    an equal slice of the nonzero stream, and a second small launch that
+    sums the rows shared between slices and stores them once;
+  * ``"block"`` (``csrc/mttkrp.cu``), asked for by name only: one CTA per
+    plan output block, kept to time the two in one run.
+
+It takes CUDA tensors only: it checks device, dtype, shape and
+contiguity and raises on anything the kernel does not take; there is no
+fallback.  CPU tensors go to the plain version (``ref.mttkrp_plan_ref``)
+one level up, in ``ops.mttkrp_from_plan``.
+
+``mttkrp_cuda.launches`` counts the MTTKRPs launched by this process (the
+split variant's carry pass is part of its call), and
+``mttkrp_cuda.launches_by_variant`` counts them per variant.
 """
 
 from __future__ import annotations
@@ -21,13 +33,24 @@ from repro_torch.kernels import build
 if TYPE_CHECKING:
     from repro_torch.kernels.mttkrp.ops import PlanBuffers
 
-__all__ = ["MAX_MODES", "MAX_RANK_CHUNK", "mttkrp_cuda", "rank_chunk"]
+__all__ = [
+    "MAX_MODES",
+    "MAX_RANK_CHUNK",
+    "VARIANTS",
+    "mttkrp_cuda",
+    "rank_chunk",
+    "reset_launch_counts",
+    "split_slices",
+]
 
-MAX_MODES = 8  # csrc/mttkrp.cu: MAX_MODES
-MAX_RANK_CHUNK = 64  # rank columns per CTA
+VARIANTS = ("split", "block")
+MAX_MODES = 8  # csrc/mttkrp.cu and csrc/mttkrp_split.cu: MAX_MODES
+MAX_RANK_CHUNK = 64  # rank columns per CTA of the block kernel
 SHARED_MEMORY_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 MAX_GRID_YZ = 65_535
-
+SPLIT_WARPS_PER_CTA = 8  # csrc/mttkrp_split.cu: THREADS / 32; one slice per warp
+SPLIT_RANK_CHUNK = 16  # csrc/mttkrp_split.cu: CHUNK, rank columns per pass
+SPLIT_BATCH_CHUNK = 4  # restarts per pass over the stream
 _FACTOR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -43,16 +66,56 @@ def rank_chunk(rank: int, rows_per_block: int) -> int:
     return chunk
 
 
-def _entry():
-    lib = build.load("mttkrp")
-    fn = lib.mttkrp_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.mttkrp_error_string.argtypes = [ctypes.c_int]
-        lib.mttkrp_error_string.restype = ctypes.c_char_p
-    return fn
+def _library(variant: str):
+    """The variant's library, with its C entry points' argument types set."""
+    if variant == "block":
+        lib = build.load("mttkrp")
+        if lib.mttkrp_launch.argtypes is None:
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.mttkrp_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+            lib.mttkrp_launch.restype = ctypes.c_int
+            lib.mttkrp_error_string.argtypes = [ctypes.c_int]
+            lib.mttkrp_error_string.restype = ctypes.c_char_p
+        return lib
+    lib = build.load("mttkrp_split")
+    if lib.mttkrp_split_launch.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mttkrp_split_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll,
+                                            i, i, i, i, i, i, i, i, i, p]
+        lib.mttkrp_split_launch.restype = ctypes.c_int
+        lib.mttkrp_split_ctas.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.mttkrp_split_ctas.restype = ctypes.c_int
+        lib.mttkrp_split_error_string.argtypes = [ctypes.c_int]
+        lib.mttkrp_split_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, variant: str) -> None:
+    if err != 0:
+        lib = _library(variant)
+        name = "mttkrp_error_string" if variant == "block" else "mttkrp_split_error_string"
+        msg = getattr(lib, name)(err).decode()
+        raise RuntimeError(f"MTTKRP kernel ({variant}) launch failed: cudaError_t {err} ({msg})")
+
+
+_CTAS: dict[tuple, int] = {}
+
+
+def split_slices(nmodes: int, batch: int, dtype: torch.dtype, device: torch.device) -> int:
+    """Slices of the nonzero stream (warps of the split kernel's grid) on
+    ``device`` for this shape: the occupancy API's CTAs per SM, times the
+    SM count, times 8 warps per CTA."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, nmodes == 3, batch == 1, dtype)  # the kernel instance the shape takes
+    if key not in _CTAS:
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _library("split").mttkrp_split_ctas(
+                nmodes, batch, _FACTOR_DTYPES[dtype], ctypes.byref(ctas))
+        _raise_on(err, "split")
+        _CTAS[key] = ctas.value
+    return _CTAS[key] * SPLIT_WARPS_PER_CTA
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -71,14 +134,20 @@ def mttkrp_cuda(
     factors: Sequence[torch.Tensor],
     mode: int,
     i_out: int,
+    *,
+    variant: str | None = None,
 ) -> torch.Tensor:
-    """Launch the MTTKRP kernel; returns ``(..., i_out, R)`` float32.
+    """Launch an MTTKRP kernel; returns ``(..., i_out, R)`` float32.
 
-    ``factors`` are all ``(I_k, R)`` or all ``(B, I_k, R)`` (one launch
+    ``factors`` are all ``(I_k, R)`` or all ``(B, I_k, R)`` (one call
     covers the restart batch), float32 or bfloat16, contiguous, on the
-    plan buffers' CUDA device.  The kernel runs on the current stream and
-    is not synchronised.
+    plan buffers' CUDA device.  ``variant`` is ``"split"`` (the default)
+    or ``"block"``.  The kernel runs on the current stream and is not
+    synchronised.
     """
+    variant = "split" if variant is None else variant
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; the kernels are {VARIANTS}")
     bufs = plan_bufs
     device = bufs.values.device
     if device.type != "cuda":
@@ -98,6 +167,7 @@ def mttkrp_cuda(
     _check(bufs.values, "values", torch.float32, (nnz_pad,), device)
     _check(bufs.local_row, "local_row", torch.int32, (nnz_pad,), device)
     _check(bufs.block_nnz_start, "block_nnz_start", torch.int64, (num_blocks + 1,), device)
+    _check(bufs.block_real_end, "block_real_end", torch.int64, (num_blocks,), device)
     if num_blocks < 1 or not 0 <= i_out <= num_blocks * rows_per_block:
         raise ValueError(
             f"i_out={i_out} does not fit {num_blocks} blocks of {rows_per_block} rows"
@@ -123,8 +193,12 @@ def mttkrp_cuda(
                 f"factor {k} has {rows} rows; the plan indexes up to row "
                 f"{bufs.index_bound[k] - 1}"
             )
-    chunk = rank_chunk(rank, rows_per_block)
-    if batch > MAX_GRID_YZ or -(-rank // chunk) > MAX_GRID_YZ:
+    if variant == "block":
+        chunk = rank_chunk(rank, rows_per_block)
+        passes = (batch, -(-rank // chunk))
+    else:
+        passes = (-(-batch // SPLIT_BATCH_CHUNK), -(-rank // SPLIT_RANK_CHUNK))
+    if max(passes) > MAX_GRID_YZ:
         raise ValueError(f"batch={batch} / rank={rank} exceed the grid's y/z limit")
 
     out = torch.empty(lead + (i_out, rank), dtype=torch.float32, device=device)
@@ -132,32 +206,67 @@ def mttkrp_cuda(
         return out
     ptrs = (ctypes.c_void_p * nmodes)(*[f.data_ptr() for f in factors])
     batch_strides = (ctypes.c_int64 * nmodes)(*[f.stride(0) if lead else 0 for f in factors])
-    fn = _entry()
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = fn(
-            bufs.indices.data_ptr(),
-            bufs.values.data_ptr(),
-            bufs.local_row.data_ptr(),
-            bufs.block_nnz_start.data_ptr(),
-            ctypes.cast(ptrs, ctypes.c_void_p),
-            ctypes.cast(batch_strides, ctypes.c_void_p),
-            out.data_ptr(),
-            nmodes,
-            mode,
-            rank,
-            chunk,
-            rows_per_block,
-            num_blocks,
-            i_out,
-            batch,
-            _FACTOR_DTYPES[dtype],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        msg = build.load("mttkrp").mttkrp_error_string(err).decode()
-        raise RuntimeError(f"MTTKRP kernel launch failed: cudaError_t {err} ({msg})")
+        if variant == "block":
+            err = _library("block").mttkrp_launch(
+                bufs.indices.data_ptr(),
+                bufs.values.data_ptr(),
+                bufs.local_row.data_ptr(),
+                bufs.block_nnz_start.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p),
+                ctypes.cast(batch_strides, ctypes.c_void_p),
+                out.data_ptr(),
+                nmodes,
+                mode,
+                rank,
+                chunk,
+                rows_per_block,
+                num_blocks,
+                i_out,
+                batch,
+                _FACTOR_DTYPES[dtype],
+                stream,
+            )
+        else:
+            slices = split_slices(nmodes, batch, dtype, device)
+            # Carries: each slice's first and last row and their partial sums.
+            carry_val = torch.empty((slices, 2, batch, rank), dtype=torch.float32, device=device)
+            carry_row = torch.empty((slices, 2), dtype=torch.int32, device=device)
+            align = 16 if dtype == torch.float32 else 8
+            vec = rank % 4 == 0 and all(f.data_ptr() % align == 0 for f in factors)
+            err = _library("split").mttkrp_split_launch(
+                bufs.indices.data_ptr(),
+                bufs.values.data_ptr(),
+                bufs.block_nnz_start.data_ptr(),
+                bufs.block_real_end.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p),
+                ctypes.cast(batch_strides, ctypes.c_void_p),
+                out.data_ptr(),
+                carry_val.data_ptr(),
+                carry_row.data_ptr(),
+                nnz_pad,
+                num_blocks,
+                nmodes,
+                mode,
+                rank,
+                batch,
+                i_out,
+                slices // SPLIT_WARPS_PER_CTA,
+                _FACTOR_DTYPES[dtype],
+                int(vec),
+                stream,
+            )
+    _raise_on(err, variant)
     mttkrp_cuda.launches += 1
+    mttkrp_cuda.launches_by_variant[variant] += 1
     return out
 
 
-mttkrp_cuda.launches = 0
+def reset_launch_counts() -> None:
+    """Set the launch count and every per-variant count to 0."""
+    mttkrp_cuda.launches = 0
+    mttkrp_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launch_counts()

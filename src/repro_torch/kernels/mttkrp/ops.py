@@ -31,6 +31,7 @@ __all__ = [
     "PlanBuffers",
     "TensorOperands",
     "block_nnz_start",
+    "block_real_end",
     "clear_caches",
     "get_plan",
     "mttkrp_from_plan",
@@ -62,6 +63,7 @@ class PlanBuffers(NamedTuple):
     values: torch.Tensor  # (nnz_pad,) float32
     local_row: torch.Tensor  # (nnz_pad,) int32
     block_nnz_start: torch.Tensor  # (num_blocks + 1,) int64 nonzero offset per block
+    block_real_end: torch.Tensor  # (num_blocks,) int64 end of each block's real nonzeros
     rows_per_block: int
     index_bound: tuple[int, ...]  # per mode, 1 + the largest index (checked on the host)
 
@@ -79,6 +81,29 @@ def block_nnz_start(plan: MTTKRPPlan) -> np.ndarray:
     """(num_blocks + 1,) int64: block ``b``'s nonzeros are ``[start[b], start[b+1])``."""
     first_tile = np.searchsorted(plan.tile_block, np.arange(plan.num_blocks + 1), side="left")
     return first_tile.astype(np.int64) * plan.tile_nnz
+
+
+def block_real_end(plan: MTTKRPPlan) -> np.ndarray:
+    """(num_blocks,) int64: block ``b``'s real nonzeros are
+    ``[start[b], real_end[b])``; the rest of the block, up to ``start[b+1]``,
+    is padding.
+
+    The plan keeps no count, so the padding is read back from the arrays:
+    it is the suffix of the block's last tile (a block pads to whole tiles,
+    so never past its last tile) whose entries have value 0, the block's
+    first row and every other coordinate 0.  A real nonzero of exactly that
+    form at the end of its block counts as padding; it adds 0 to the output
+    for finite factors.
+    """
+    start = block_nnz_start(plan)
+    tile = plan.tile_nnz
+    tail = start[1:, None] - tile + np.arange(tile)  # each block's last tile
+    idx = plan.sorted_indices[tail]  # (num_blocks, tile, nmodes)
+    first_row = (np.arange(plan.num_blocks, dtype=np.int64) * plan.rows_per_block)[:, None]
+    pad = (plan.sorted_values[tail] == 0) & (idx[..., plan.mode] == first_row)
+    pad &= (np.delete(idx, plan.mode, axis=-1) == 0).all(axis=-1)
+    suffix = np.cumprod(pad[:, ::-1], axis=1).sum(axis=1)
+    return (start[1:] - suffix).astype(np.int64)
 
 
 def plan_device_buffers(plan: MTTKRPPlan, device: str | torch.device) -> PlanBuffers:
@@ -103,6 +128,7 @@ def plan_device_buffers(plan: MTTKRPPlan, device: str | torch.device) -> PlanBuf
                 values=torch.as_tensor(plan.sorted_values, dtype=torch.float32, device=dev),
                 local_row=torch.as_tensor(plan.local_row, dtype=torch.int32, device=dev),
                 block_nnz_start=torch.as_tensor(block_nnz_start(plan), device=dev),
+                block_real_end=torch.as_tensor(block_real_end(plan), device=dev),
                 rows_per_block=int(plan.rows_per_block),
                 index_bound=bound,
             ),

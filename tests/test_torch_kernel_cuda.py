@@ -1,4 +1,4 @@
-"""The CUDA MTTKRP kernel against its plain PyTorch version, on the card.
+"""The CUDA MTTKRP kernels against their plain PyTorch version, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (the kernel is built with nvcc
 on first use); skipped elsewhere.  Imports no JAX, so it runs on a machine
@@ -6,8 +6,11 @@ that has only the port:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernel_cuda.py
 
-Tolerances: 1e-4 for float32 factors, 3e-2 for bfloat16 (the kernel's
-shared-memory atomics sum in a run-dependent order).
+Tolerances: 1e-4 for float32 factors, 3e-2 for bfloat16 (the kernels sum
+in another order than the plain version).  The edge cases of the split
+kernel's partition hold each element within that fraction of the sum of
+its terms' absolute values, as ``chip_smoke.compare`` does, and check that
+two launches agree bit for bit.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import torch
 from repro_torch.core.sparse_tensor import SparseTensor, build_mttkrp_plan, random_sparse_tensor
 from repro_torch.kernels.mttkrp import kernel as tkernel
 from repro_torch.kernels.mttkrp import ops as tops
+from repro_torch.kernels.mttkrp.partition import real_mask, slice_bounds
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref
 
 pytestmark = pytest.mark.cuda
@@ -42,40 +46,160 @@ def _factors(shape, rank, device, *, batch=None, dtype=torch.float32, seed=0):
 
 
 def _compare(t, rank, device, *, tile_nnz=64, rows_per_block=32, batch=None,
-             dtype=torch.float32, tol=1e-4):
+             dtype=torch.float32, tol=1e-4, variant=None):
     facs = _factors(t.shape, rank, device, batch=batch, dtype=dtype)
     for mode in range(t.nmodes):
         plan = build_mttkrp_plan(t, mode, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
         bufs = tops.plan_device_buffers(plan, device)
-        before = tkernel.mttkrp_cuda.launches
-        got = tkernel.mttkrp_cuda(bufs, facs, mode, t.shape[mode])
+        before = dict(tkernel.mttkrp_cuda.launches_by_variant)
+        got = tkernel.mttkrp_cuda(bufs, facs, mode, t.shape[mode], variant=variant)
         torch.cuda.synchronize()
-        assert tkernel.mttkrp_cuda.launches == before + 1
+        after = tkernel.mttkrp_cuda.launches_by_variant
+        assert after[variant or "split"] == before[variant or "split"] + 1
         want = mttkrp_plan_ref(bufs, facs, mode, t.shape[mode])
         assert got.shape == want.shape and got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+VARIANTS = [None, "block"]  # None: the default, the split kernel
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("rank", [1, 16, 128])
-def test_kernel_matches_plain_version(cuda, rank):
-    _compare(random_sparse_tensor((70, 33, 41), 2000, seed=3, zipf_a=0.8), rank, cuda)
+def test_kernel_matches_plain_version(cuda, rank, variant):
+    _compare(random_sparse_tensor((70, 33, 41), 2000, seed=3, zipf_a=0.8), rank, cuda,
+             variant=variant)
 
 
-def test_kernel_edge_geometry(cuda):
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_kernel_edge_geometry(cuda, variant):
     idx = np.array([[0, 0, 0], [1, 1, 1], [250, 2, 2]], np.int32)
     _compare(SparseTensor(idx, np.array([1.0, 2.0, 3.0], np.float32), (300, 4, 4)), 8, cuda,
-             rows_per_block=64)
+             rows_per_block=64, variant=variant)
     _compare(SparseTensor(np.array([[5, 2, 7]], np.int32), np.array([2.5], np.float32),
-                          (11, 6, 9)), 8, cuda)
-    _compare(random_sparse_tensor((40, 30, 20), 5, seed=13), 16, cuda, tile_nnz=256)
-    _compare(random_sparse_tensor((20, 15, 10, 8), 300, seed=4), 8, cuda)
-    _compare(random_sparse_tensor((9, 8, 7, 6, 5), 300, seed=5), 8, cuda)
+                          (11, 6, 9)), 8, cuda, variant=variant)
+    _compare(random_sparse_tensor((40, 30, 20), 5, seed=13), 16, cuda, tile_nnz=256,
+             variant=variant)
+    _compare(random_sparse_tensor((20, 15, 10, 8), 300, seed=4), 8, cuda, variant=variant)
+    _compare(random_sparse_tensor((9, 8, 7, 6, 5), 300, seed=5), 8, cuda, variant=variant)
 
 
-def test_kernel_bf16_and_batched(cuda):
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_kernel_bf16_and_batched(cuda, variant):
     t = random_sparse_tensor((60, 50, 40), 3000, seed=6, zipf_a=0.9)
-    _compare(t, 16, cuda, dtype=torch.bfloat16, tol=3e-2)
-    _compare(t, 16, cuda, batch=4)
+    _compare(t, 16, cuda, dtype=torch.bfloat16, tol=3e-2, variant=variant)
+    _compare(t, 16, cuda, batch=4, variant=variant)
+
+
+# -- the split kernel's partition ---------------------------------------------
+
+def _hot_row(rng):
+    """200K nonzeros on row 0 among 10K elsewhere: row 0 spans many slices."""
+    rows = np.concatenate([np.zeros(200_000, np.int64), rng.integers(1, 500, 10_000)])
+    idx = np.stack([rows, rng.integers(0, 300, rows.size), rng.integers(0, 400, rows.size)], 1)
+    return SparseTensor(idx.astype(np.int32), rng.standard_normal(rows.size).astype(np.float32),
+                        (500, 300, 400))
+
+
+def _padding_heavy(rng):
+    """One nonzero per block of 16 rows, 255 padding entries after each:
+    most slice boundaries fall inside a block's padding."""
+    rows = np.arange(0, 32_000, 16) + rng.integers(0, 16, 2000)
+    idx = np.stack([rows, rng.integers(0, 50, 2000), rng.integers(0, 60, 2000)], 1)
+    return SparseTensor(idx.astype(np.int32), rng.standard_normal(2000).astype(np.float32),
+                        (32_000, 50, 60))
+
+
+def _sparse_rows(rng):
+    """Every 50th row holds 100 nonzeros: runs of empty rows between slices."""
+    rows = np.repeat(np.arange(0, 100_000, 50), 100)
+    idx = np.stack([rows, rng.integers(0, 70, rows.size), rng.integers(0, 90, rows.size)], 1)
+    return SparseTensor(idx.astype(np.int32), rng.standard_normal(rows.size).astype(np.float32),
+                        (100_000, 70, 90))
+
+
+def _few(rng):
+    """Fewer nonzeros than slices."""
+    idx = np.stack([rng.integers(0, 400, 50), rng.integers(0, 30, 50), rng.integers(0, 20, 50)], 1)
+    return SparseTensor(idx.astype(np.int32), rng.standard_normal(50).astype(np.float32),
+                        (400, 30, 20))
+
+
+def _moderate(rng):
+    return random_sparse_tensor((300, 200, 250), 60_000, seed=2, zipf_a=0.8)
+
+
+# name -> (tensor maker, rank, tile_nnz, rows_per_block, batch, dtype)
+SPLIT_CASES = {
+    "hot row": (_hot_row, 16, 256, 256, None, torch.float32),
+    "slice boundary in padding": (_padding_heavy, 16, 256, 16, None, torch.float32),
+    "empty rows between slices": (_sparse_rows, 16, 128, 64, None, torch.float32),
+    "fewer nonzeros than slices": (_few, 16, 32, 16, None, torch.float32),
+    "one nonzero": (lambda rng: SparseTensor(np.array([[5, 2, 7]], np.int32),
+                                             np.array([2.5], np.float32), (11, 6, 9)),
+                    16, 256, 64, None, torch.float32),
+    "rank 1": (_moderate, 1, 256, 256, None, torch.float32),
+    "rank 13": (_moderate, 13, 128, 32, None, torch.float32),
+    "rank 16": (_moderate, 16, 256, 256, None, torch.float32),
+    "rank 128": (_moderate, 128, 256, 256, None, torch.float32),
+    "4 modes": (lambda rng: random_sparse_tensor((60, 50, 40, 30), 20_000, seed=4, zipf_a=0.7),
+                16, 128, 32, None, torch.float32),
+    "5 modes": (lambda rng: random_sparse_tensor((20, 18, 16, 14, 12), 20_000, seed=5),
+                8, 128, 32, None, torch.float32),
+    "bf16 factors": (_moderate, 16, 256, 256, None, torch.bfloat16),
+    "B=4": (_moderate, 16, 256, 256, 4, torch.float32),
+    "B=5": (_moderate, 16, 64, 16, 5, torch.float32),
+}
+
+
+def _terms_compare(bufs, facs, mode, i_out, got, tol):
+    """max |got - want| / (the MTTKRP of |values| and |factors|), elementwise."""
+    want = mttkrp_plan_ref(bufs, facs, mode, i_out)
+    scale = mttkrp_plan_ref(bufs._replace(values=bufs.values.abs()), [f.abs() for f in facs],
+                            mode, i_out)
+    return bool(((got - want).abs() <= tol * scale).all())
+
+
+def _premise(name, t, plan, slices):
+    """Each case's partition really has the edge it is named for (mode 0)."""
+    bufs = tops.plan_device_buffers(plan, "cpu")
+    bounds = slice_bounds(int(bufs.values.shape[0]), slices)[1:-1]
+    real = real_mask(bufs)
+    if name == "hot row":
+        assert (bufs.indices[:, 0] == 0).sum().item() > 4 * bufs.values.shape[0] / slices
+    elif name == "slice boundary in padding":
+        assert (~real[torch.from_numpy(bounds)]).any()
+    elif name == "empty rows between slices":
+        pos = torch.nonzero(real).flatten()
+        rows = bufs.indices[:, 0][pos]
+        at = torch.searchsorted(pos, torch.from_numpy(bounds))
+        inside = (at > 0) & (at < pos.numel())
+        gap = rows[at[inside]] - rows[at[inside] - 1]
+        assert (gap > 1).any()
+    elif name == "fewer nonzeros than slices":
+        assert t.nnz < slices
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_kernel_partition_edges(cuda, name):
+    make, rank, tile_nnz, rows_per_block, batch, dtype = SPLIT_CASES[name]
+    t = make(np.random.default_rng(8))
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    facs = _factors(t.shape, rank, cuda, batch=batch, dtype=dtype, seed=t.nnz)
+    slices = tkernel.split_slices(t.nmodes, batch or 1, dtype, cuda)
+    for mode in range(t.nmodes):
+        plan = build_mttkrp_plan(t, mode, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
+        bufs = tops.plan_device_buffers(plan, cuda)
+        if mode == 0:
+            _premise(name, t, plan, slices)
+        before = tkernel.mttkrp_cuda.launches_by_variant["split"]
+        got = tkernel.mttkrp_cuda(bufs, facs, mode, t.shape[mode])
+        again = tkernel.mttkrp_cuda(bufs, facs, mode, t.shape[mode])
+        torch.cuda.synchronize()
+        assert tkernel.mttkrp_cuda.launches_by_variant["split"] == before + 2
+        assert got.shape == (() if batch is None else (batch,)) + (t.shape[mode], rank)
+        assert _terms_compare(bufs, facs, mode, t.shape[mode], got, tol), f"mode {mode}"
+        assert torch.equal(got, again), f"mode {mode}: two launches differ"
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -88,3 +212,5 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tkernel.mttkrp_cuda(bufs, [f.double() for f in facs], 0, 30)
     with pytest.raises(ValueError, match="rows"):
         tkernel.mttkrp_cuda(bufs, [facs[0], facs[1][:5].contiguous(), facs[2]], 0, 30)
+    with pytest.raises(ValueError, match="variant"):
+        tkernel.mttkrp_cuda(bufs, facs, 0, 30, variant="atomic")

@@ -20,6 +20,7 @@ from repro_torch.core import mttkrp as tm
 from repro_torch.core import sparse_tensor as tst
 from repro_torch.kernels.mttkrp import kernel as tkernel
 from repro_torch.kernels.mttkrp import ops as tops
+from repro_torch.kernels.mttkrp import partition
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref
 
 F32_TOL = 1e-4
@@ -236,16 +237,29 @@ def test_plan_with_out_of_range_index_is_refused():
         tops.plan_device_buffers(tst.build_mttkrp_plan(bad, 0, tile_nnz=8, rows_per_block=8), "cpu")
 
 
-def test_cuda_wrapper_refuses_cpu_tensors():
-    """The kernel wrapper never falls back: CPU buffers raise."""
+@pytest.mark.parametrize("variant", [None, "split", "block"])
+def test_cuda_wrapper_refuses_cpu_tensors(variant):
+    """The kernel wrapper never falls back: CPU buffers raise, whichever kernel."""
     t, _ = _pair((20, 10, 10), 50, seed=23)
     plan = tst.build_mttkrp_plan(t, 0, tile_nnz=32, rows_per_block=8)
     bufs = tops.plan_device_buffers(plan, "cpu")
     tf = factors_from_numpy(_np_factors(t.shape, 4), device="cpu")
     before = tkernel.mttkrp_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
-        tkernel.mttkrp_cuda(bufs, tf, 0, t.shape[0])
+        tkernel.mttkrp_cuda(bufs, tf, 0, t.shape[0], variant=variant)
     assert tkernel.mttkrp_cuda.launches == before
+
+
+def test_cuda_wrapper_names_its_variants_and_resets_its_counts():
+    t, _ = _pair((20, 10, 10), 50, seed=23)
+    bufs = tops.plan_device_buffers(tst.build_mttkrp_plan(t, 0, tile_nnz=32, rows_per_block=8),
+                                    "cpu")
+    tf = factors_from_numpy(_np_factors(t.shape, 4), device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        tkernel.mttkrp_cuda(bufs, tf, 0, t.shape[0], variant="atomic")
+    tkernel.reset_launch_counts()
+    assert tkernel.mttkrp_cuda.launches == 0
+    assert tkernel.mttkrp_cuda.launches_by_variant == {"split": 0, "block": 0}
 
 
 @pytest.mark.parametrize(
@@ -278,3 +292,123 @@ def test_clear_caches_releases_memoized_plans_and_buffers():
     tops.clear_caches()
     assert len(tops._PLAN_CACHE) == len(tops._BUFFER_CACHE) == len(tops._OPERAND_CACHE) == 0
     assert tops.get_plan(t, 0) is not plan
+
+
+# -- the split kernel's partition (csrc/mttkrp_split.cu), emulated on the CPU --
+
+def _rows_tensor(rows, dims, seed):
+    """A tensor whose output-mode (mode 0) coordinates are ``rows``."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rows] + [rng.integers(0, d, rows.size) for d in dims[1:]], axis=1)
+    return _pair_from(idx.astype(np.int32), rng.standard_normal(rows.size).astype(np.float32),
+                      dims)
+
+
+def _hot_row():
+    rng = np.random.default_rng(40)
+    return _rows_tensor(np.concatenate([np.zeros(3000, np.int64), rng.integers(1, 60, 300)]),
+                        (60, 20, 30), 40)
+
+
+def _padding_heavy():
+    rng = np.random.default_rng(41)
+    return _rows_tensor(np.arange(0, 3200, 16) + rng.integers(0, 16, 200), (3200, 12, 10), 41)
+
+
+def _sparse_rows():
+    return _rows_tensor(np.repeat(np.arange(0, 4000, 20), 10), (4000, 15, 12), 42)
+
+
+# name -> (tensor pair, rank, tile_nnz, rows_per_block): the plan geometries
+# of the tests above, and the partition's edges.
+PARTITION_CASES = {
+    "3 modes, tile 128, 64 rows per block": (lambda: _pair((70, 33, 41), 800, seed=3), 16, 128, 64),
+    "4 modes": (lambda: _pair((20, 15, 10, 8), 300, seed=4), 8, 64, 32),
+    "5 modes": (lambda: _pair((9, 8, 7, 6, 5), 300, seed=5), 8, 64, 32),
+    "zipf, 16 rows per block": (
+        lambda: _pair((60, 50, 40), 1500, seed=11, zipf_a=0.85, shuffle=True), 16, 64, 16),
+    "empty blocks": (lambda: _pair_from(np.array([[0, 0, 0], [1, 1, 1], [250, 2, 2]], np.int32),
+                                        np.array([1.0, 2.0, 3.0], np.float32), (300, 4, 4)),
+                     8, 64, 64),
+    "one nonzero": (lambda: _pair_from(np.array([[5, 2, 7]], np.int32),
+                                       np.array([2.5], np.float32), (11, 6, 9)), 8, 256, 64),
+    "rank 1, tile 64, 16 rows per block": (lambda: _pair((30, 20, 10), 200, seed=21), 1, 64, 16),
+    "nnz < tile": (lambda: _pair((40, 30, 20), 5, seed=13), 16, 256, 64),
+    "hot row (3000 of 3300 nnz on row 0)": (_hot_row, 8, 64, 32),
+    "slice boundaries inside padding": (_padding_heavy, 8, 64, 16),
+    "empty rows between slices": (_sparse_rows, 8, 32, 64),
+}
+SLICES = (1, 7, 64, 300)  # 300: more slices than nonzeros in most cases
+
+
+@pytest.mark.parametrize("name", list(PARTITION_CASES))
+def test_split_partition_stores_every_row_once(name):
+    make, rank, tile_nnz, rows_per_block = PARTITION_CASES[name]
+    t, tj = make()
+    facs = _np_factors(t.shape, rank, seed=len(name))
+    tf = factors_from_numpy(facs, device="cpu")
+    for mode in range(t.nmodes):
+        plan = tst.build_mttkrp_plan(t, mode, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
+        bufs = tops.plan_device_buffers(plan, "cpu")
+        want = mttkrp_plan_ref(bufs, tf, mode, t.shape[mode]).numpy()
+        oracle = np.asarray(jm.mttkrp_ref(tj, [jnp.asarray(f) for f in facs], mode))
+        for slices in SLICES:
+            out, stores, _ = partition.emulate_split(bufs, tf, mode, t.shape[mode], slices)
+            assert stores.tolist() == [1] * t.shape[mode], f"mode {mode}, {slices} slices"
+            np.testing.assert_allclose(out.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+            np.testing.assert_allclose(out.numpy(), oracle, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_split_partition_cases_reach_their_edges():
+    """At 300 slices each named edge of the partition occurs in mode 0."""
+    def mode0(name, slices=300):
+        make, rank, tile_nnz, rows_per_block = PARTITION_CASES[name]
+        t, _ = make()
+        plan = tst.build_mttkrp_plan(t, 0, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
+        bufs = tops.plan_device_buffers(plan, "cpu")
+        facs = factors_from_numpy(_np_factors(t.shape, rank), device="cpu")
+        _, _, carry_rows = partition.emulate_split(bufs, facs, 0, t.shape[0], slices)
+        bounds = partition.slice_bounds(plan.nnz_pad, slices)[1:-1]
+        return t, bufs, carry_rows, bounds
+
+    _, _, carry_rows, _ = mode0("hot row (3000 of 3300 nnz on row 0)")
+    assert (carry_rows[:, 0] == 0).sum() > 100  # row 0 is the first carry of >100 slices
+    _, bufs, _, bounds = mode0("slice boundaries inside padding")
+    assert (~partition.real_mask(bufs)[torch.from_numpy(bounds)]).sum() > 100
+    _, _, carry_rows, _ = mode0("empty rows between slices")
+    firsts = carry_rows[carry_rows[:, 0] >= 0]
+    lasts = np.where(firsts[:, 1] >= 0, firsts[:, 1], firsts[:, 0])
+    assert (firsts[1:, 0] - lasts[:-1] > 1).any()  # empty rows between two slices
+    t, _, carry_rows, _ = mode0("nnz < tile")
+    assert t.nnz < 300 and (carry_rows[:, 0] < 0).sum() > 250  # most slices hold no nonzero
+
+
+@pytest.mark.parametrize("tile_nnz,rows_per_block", [(32, 8), (64, 16), (256, 256)])
+def test_block_real_end_counts_each_blocks_nonzeros(tile_nnz, rows_per_block):
+    t, _ = _pair((90, 20, 30), 700, seed=43, zipf_a=0.9)
+    for mode in range(3):
+        plan = tst.build_mttkrp_plan(t, mode, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
+        start = tops.block_nnz_start(plan)
+        per_block = np.bincount(t.indices[:, mode] // rows_per_block, minlength=plan.num_blocks)
+        np.testing.assert_array_equal(tops.block_real_end(plan) - start[:-1], per_block)
+        bufs = tops.plan_device_buffers(plan, "cpu")
+        assert bufs.block_real_end.dtype == torch.int64
+        np.testing.assert_array_equal(bufs.block_real_end.numpy(), tops.block_real_end(plan))
+
+
+def test_split_partition_skips_padding_by_position_not_value():
+    """A factor's row 0 is inf, and no nonzero reads it: the padding entries
+    point at it with value 0.  The split partition skips them and stays
+    finite; the plain version multiplies them in (0 * inf = NaN)."""
+    t, tj = _rows_tensor(np.arange(0, 40, 2), (40, 6, 5), 44)
+    t = tst.SparseTensor(np.maximum(t.indices, [0, 1, 1]).astype(np.int32), t.values, t.shape)
+    facs = _np_factors(t.shape, 4, seed=44)
+    facs[1][0] = np.inf
+    tf = factors_from_numpy(facs, device="cpu")
+    bufs = tops.plan_device_buffers(tst.build_mttkrp_plan(t, 0, tile_nnz=8, rows_per_block=8),
+                                    "cpu")
+    out, stores, _ = partition.emulate_split(bufs, tf, 0, 40, 5)
+    assert stores.tolist() == [1] * 40 and bool(torch.isfinite(out).all())
+    assert bool(torch.isnan(mttkrp_plan_ref(bufs, tf, 0, 40)).any())
+    np.testing.assert_allclose(out.numpy(), tm.mttkrp_ref(t, tf, 0).numpy(), rtol=F32_TOL,
+                               atol=F32_TOL)
