@@ -56,18 +56,33 @@ Phases, each of which fails the run (exit code 1, no result line):
      the times (CUDA events) of the wgmma kernel, the ``mma.sync`` kernel,
      the plain version and ``scaled_dot_product_attention`` (a yardstick the
      port never calls) beside the bound, and a ``torch.profiler`` trace of
-     one prefill.
+     one prefill;
+  9. the multi-tenant CP-ALS service (``DecompositionService``, max_batch 8,
+     2 batches in flight) on 24 synthetic requests at a tenth of NELL-2's
+     dims (1.3-2.2M drawn nonzeros each, ranks 8 and 16, 10 sweeps): a
+     closed-loop drain of the trace submitted four times (each batch
+     uploads its tensors and builds its stacked plans on the card inside
+     the clock), then a replay of the requests at the trace's arrivals;
+     every bucket batch's MTTKRP one split-kernel launch over its stacked
+     plan (launches counted per variant); one batch's stacked MTTKRP per
+     mode against its plain version, staging and ``run_batch`` queued
+     behind a sleep (the host must return first) and ``run_batch`` under
+     ``torch.cuda.set_sync_debug_mode("error")``, every response against a
+     standalone ``cp_als_fused`` on the card (FUSED_FIT_TOL), and a
+     ``torch.profiler`` trace of one batch, staging included.
 
 The last three lines are the card's ``name, power.limit``, a JSON object
 with the main paths' kernels' numbers (the split MTTKRP kernel with the
-block kernel's time as ``previous_ms``, and the wgmma flash kernel with
-the ``mma.sync`` kernel's), and
+block kernel's time as ``previous_ms`` and its launches over both CP-ALS
+main paths, phases 3 and 9, and the wgmma flash kernel with the
+``mma.sync`` kernel's), and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import itertools
@@ -102,6 +117,14 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, max_row_error  # no
 from repro_torch.models.attention import project_qkv  # noqa: E402
 from repro_torch.models.model_zoo import init_model, make_prefill_fn  # noqa: E402
 from repro_torch.models.transformer import forward  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    BucketExecutor,
+    DecompositionService,
+    TrafficConfig,
+    bucket_signature,
+    replay_trace,
+    synthetic_trace,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -133,6 +156,28 @@ RANK = 16  # paper §V-A2
 SWEEPS = 5
 RESTARTS = 4
 TIMING_REPS = 10
+
+# Phase 9: NELL-2 Table II's dims / 10 and its Zipf 0.85; nonzeros at the
+# scale of FROSTT's smaller tensors (LBNL-network 1.7M, NIPS 3.1M).  Every
+# request bands to dims (2048, 1024, 4096) and nnz_pad 2^21; ranks 8 and 16
+# make two buckets.
+SERVE_TRAFFIC = TrafficConfig(
+    n_requests=24, base_dims=(1210, 920, 2880), dim_jitter=0.1,
+    nnz_range=(1_300_000, 2_200_000), ranks=(8, 16), n_iters=10, zipf_a=0.85, seed=0)
+SERVE_MAX_BATCH = 8
+SERVE_MAX_INFLIGHT = 2
+SERVE_REPLAY_SCALE = 1.0  # the trace's own arrivals: 24 within ~50 ms, a queue forms
+# The closed-loop drain submits the trace this many times under new ids (12
+# batches), so that its rate is not mostly pipeline fill and drain.  Nothing
+# is memoized per request, so a repeated tensor costs what a new one does.
+SERVE_DRAIN_ROUNDS = 4
+SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep ahead of a launch: ~0.5 s on an H100
+# CUDA queues about 1020 launches ahead of the device and then blocks
+# the host until there is room (phase 9's launch-queue line).  One served
+# sweep queues about 109 device operations, so the check behind a sleep runs
+# 4 sweeps: a batch's 10 fill the queue, and that wait is back-pressure, not
+# a read of a result.
+SLEEP_CHECK_SWEEPS = 4
 
 
 class SmokeFailure(Exception):
@@ -783,6 +828,306 @@ def lm_phases(dev, card: str) -> dict:
     )
 
 
+def service_summary(svc, wall_s: float) -> dict:
+    """Requests/s, latency percentiles and batches of one service run."""
+    resps = list(svc.completed.values())
+    batches = collections.Counter((r.dispatch_t, r.signature) for r in resps)
+    summary = {key: svc.metrics.summary(key) for key in ("latency_s", "queue_wait_s", "service_s")}
+    return dict(requests=len(resps), wall_s=wall_s, requests_per_s=len(resps) / wall_s,
+                batches=len(batches), batch_sizes=sorted(batches.values(), reverse=True),
+                max_queue_depth=max(svc.metrics.values("queue_depth")),
+                **{f"{k[:-2]}_{stat}_ms": v[stat] * 1e3 for k, v in summary.items()
+                   for stat in ("p50", "p99")})
+
+
+def profile_batch(executor, members, batch_ms: float) -> dict:
+    """Device time of one batch by kernel class: its staging (uploads and the
+    stacked plans' build) and its ``run_batch``; the idle share is of
+    ``batch_ms``, the unprofiled wall time of both."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_stage:
+        *operands, plans = executor.stage(members, pad_to=SERVE_MAX_BATCH)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        executor.core.run_batch(*operands, n_iters=executor.signature.n_iters, plans=plans)
+        torch.cuda.synchronize()
+    stage_events = [e for e in prof_stage.key_averages() if e.device_type == DeviceType.CUDA]
+    stage_ms = {"uploads (memcpy HtoD)": 0.0, "plan build (sort, scatter, rest)": 0.0}
+    for e in stage_events:
+        key = "uploads (memcpy HtoD)" if "memcpy" in e.key.lower() else \
+            "plan build (sort, scatter, rest)"
+        stage_ms[key] += e.self_device_time_total / 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    classes = {"split kernel": 0.0, "carry pass": 0.0, "fit gathers": 0.0,
+               "products (mul, GEMM/GEMV)": 0.0, "solves": 0.0, "rest": 0.0}
+    for e in events:
+        name = e.key.lower()
+        if "mttkrp_split_kernel" in name:
+            key = "split kernel"
+        elif "mttkrp_carry_kernel" in name:
+            key = "carry pass"
+        elif "index" in name or "gather" in name:
+            key = "fit gathers"
+        elif any(t in name for t in ("getrf", "getrs", "trsm", "lu_", "laswp", "solve", "magma",
+                                     "cusolver", "batch_")):
+            key = "solves"
+        elif any(t in name for t in ("mulfunctor", "gemm", "gemv", "dot", "nvjet", "sm90_",
+                                     "cutlass")):
+            key = "products (mul, GEMM/GEMV)"
+        else:
+            key = "rest"
+        classes[key] += e.self_device_time_total / 1e3
+    classes = {**{f"staging: {k}": v for k, v in stage_ms.items()}, **classes}
+    busy = sum(classes.values())
+    print(f"  one batch, staged and run (B={SERVE_MAX_BATCH}, {executor.signature.n_iters} "
+          f"sweeps): device busy {busy:.2f} ms (profiler) of {batch_ms:.2f} ms wall "
+          f"(unprofiled), idle share {max(0.0, 1 - busy / batch_ms):.3f}")
+    for key, ms in classes.items():
+        print(f"    {key:<40} {ms:9.3f} ms  {ms / busy:6.1%} of device time")
+    stage_events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for label, evs in (("staging", stage_events[:6]), ("run_batch", events[:12])):
+        for e in evs:
+            print(f"    {label:<9} {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
+                  f"{e.key[:80]}")
+    return dict(busy_ms=busy, **{k.split(" (")[0].replace("staging: ", "stage_")
+                                 .replace(" ", "_") + "_ms": v for k, v in classes.items()})
+
+
+def behind_a_sleep(fn, cycles: int = SLEEP_CYCLES):
+    """Run ``fn`` behind ``cycles`` of queued device work (~0.5 s by
+    default).  Returns ``(result, host ms of the call, whether the sleep had
+    ended when it returned)``: a call that synchronises with the device
+    returns only after the sleep."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    slept = torch.cuda.Event()
+    slept.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ended = slept.query()
+    torch.cuda.synchronize()
+    return out, host_ms, ended
+
+
+def host_waits(dev, dims) -> None:
+    """Where the host waits for the device on the service's path: the ALS
+    solve at a batch's shapes by PyTorch's default route and by the port's
+    (``cp_als._solve``, which must never wait), and how many launches the
+    launch queue takes before it blocks the host."""
+    gen = torch.Generator().manual_seed(0)
+    waits = {"default": [], "port": []}
+    for rank in SERVE_TRAFFIC.ranks:
+        for rows in sorted(set(dims)):
+            f = torch.rand((SERVE_MAX_BATCH, 64, rank), generator=gen)
+            a = (f.mT @ f + 1e-2 * torch.eye(rank)).to(dev)
+            b = torch.randn((SERVE_MAX_BATCH, rank, rows), generator=gen).to(dev)
+            routes = {"default": lambda: torch.linalg.solve_ex(a, b, check_errors=False),
+                      "port": lambda: tcp._solve(a, b)}
+            for route, fn in routes.items():
+                fn()  # the first call loads the library
+                if behind_a_sleep(fn, SLEEP_CYCLES // 5)[2]:
+                    waits[route].append((rank, rows))
+    print(f"  ALS solves of {SERVE_MAX_BATCH} systems (rank, right-hand sides) that waited for a "
+          f"queued sleep: PyTorch's default route {waits['default']}, the port's {waits['port']}")
+    check(not waits["port"], f"the port's solve waited for the device at {waits['port']}")
+    x = torch.zeros(16, device=dev)
+    queued = {}
+    for n in (512, 1000, 1020, 1024, 1100):
+        queued[n] = not behind_a_sleep(lambda: [x.add_(1.0) for _ in range(n)],
+                                       SLEEP_CYCLES // 5)[2]
+    print(f"  launch queue: n tiny kernels behind a sleep, did the host get back first? {queued}")
+
+
+def service_phase(dev, card: str) -> dict:
+    """Phase 9: the multi-tenant CP-ALS service at a real size; what it adds
+    to the MTTKRP kernel's entry of the ``kernels`` line."""
+    cfg = SERVE_TRAFFIC
+    phase(f"phase 9: the CP-ALS service, {cfg.n_requests} requests, dims ~{cfg.base_dims} "
+          f"(NELL-2 / 10), {cfg.nnz_range} drawn nonzeros, ranks {cfg.ranks}, "
+          f"{cfg.n_iters} sweeps, max_batch {SERVE_MAX_BATCH}, max_inflight {SERVE_MAX_INFLIGHT}")
+    t0 = time.perf_counter()
+    trace = synthetic_trace(cfg)
+    draw_s = time.perf_counter() - t0
+    reqs = [r for _, r in trace]
+    sigs = {r.request_id: bucket_signature(r) for r in reqs}
+    nnz = [r.tensor.nnz for r in reqs]
+    print(f"  trace: {len(reqs)} requests, {min(nnz)}-{max(nnz)} nonzeros after coalescing, "
+          f"arrivals over {trace[-1][0] * 1e3:.1f} ms; host draw {draw_s:.2f} s")
+    for sig, n in sorted(collections.Counter(sigs.values()).items()):
+        print(f"  bucket dims {sig.dims} nnz_pad {sig.nnz_pad} rank_pad {sig.rank_pad} "
+              f"n_iters {sig.n_iters}: {n} requests")
+
+    # Off the clock: one batch per bucket through a throwaway service, so the
+    # drain does not time the first use of each library kernel.  It leaves
+    # nothing of its requests behind: the drain uploads and plans each anew.
+    warm = DecompositionService(max_batch=SERVE_MAX_BATCH, max_inflight=SERVE_MAX_INFLIGHT,
+                                device=dev)
+    for sig in set(sigs.values()):
+        first = next(r for r in reqs if sigs[r.request_id] == sig)
+        warm.submit(dataclasses.replace(first, request_id=first.request_id + "-warm"))
+    warm.run_until_drained()
+
+    # -- the main path: a closed-loop drain, then an open-loop replay ---------
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmod.reset_launch_counts()  # the main path starts here
+    drain = DecompositionService(max_batch=SERVE_MAX_BATCH, max_inflight=SERVE_MAX_INFLIGHT,
+                                 device=dev)
+    drained = [dataclasses.replace(r, request_id=f"{r.request_id}-d{k}")
+               for k in range(SERVE_DRAIN_ROUNDS) for r in reqs]
+    t0 = time.perf_counter()
+    for r in drained:
+        check(drain.submit(r), f"{r.request_id} refused")
+    done = drain.run_until_drained()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    replay_trace_ = [(a, dataclasses.replace(r, request_id=r.request_id + "-replay"))
+                     for a, r in trace]
+    replay = DecompositionService(max_batch=SERVE_MAX_BATCH, max_inflight=SERVE_MAX_INFLIGHT,
+                                  device=dev)
+    t0 = time.perf_counter()
+    replayed = replay_trace(replay, replay_trace_, time_scale=SERVE_REPLAY_SCALE)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = kmod.mttkrp_cuda.launches  # the main path ends here
+    by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    runs = {"closed-loop drain": (drain, drain_s), f"replay at time_scale {SERVE_REPLAY_SCALE}":
+            (replay, replay_s)}
+    stats = {}
+    for label, (svc, wall) in runs.items():
+        st = stats[label] = service_summary(svc, wall)
+        print(f"  {label}: {st['requests']} answered in {wall:.3f} s, "
+              f"{st['requests_per_s']:.2f} requests/s; latency p50 {st['latency_p50_ms']:.1f} ms "
+              f"p99 {st['latency_p99_ms']:.1f} ms, queue wait p50 {st['queue_wait_p50_ms']:.1f} "
+              f"p99 {st['queue_wait_p99_ms']:.1f} ms, service p50 {st['service_p50_ms']:.1f} "
+              f"p99 {st['service_p99_ms']:.1f} ms; {st['batches']} batches of "
+              f"{st['batch_sizes']} real requests; max queue depth at a completion "
+              f"{st['max_queue_depth']:.0f}  [{card}]")
+    batches = sum(st["batches"] for st in stats.values())
+    expected = batches * cfg.n_iters * len(cfg.base_dims)
+    print(f"  MTTKRP launches over the service: {by_variant} (expected {expected} split = "
+          f"{batches} batches x {cfg.n_iters} sweeps x {len(cfg.base_dims)} modes, 0 block); "
+          f"peak device memory {peak_gb:.2f} GB")
+    check(by_variant == {"split": expected, "block": 0} and launches == expected,
+          f"the service's MTTKRPs were not one split launch per mode per sweep per batch: "
+          f"{by_variant}")
+    check(stats[f"replay at time_scale {SERVE_REPLAY_SCALE}"]["max_queue_depth"] >= 1,
+          "the replay never found a queue: raise its arrival rate")
+
+    # (d) every request answered once, pad slots dropped.
+    for label, (svc, _) in runs.items():
+        want = ({r.request_id for r in drained} if svc is drain
+                else {r.request_id + "-replay" for r in reqs})
+        check(set(svc.completed) == want and svc.metrics.total_logged == len(want),
+              f"{label}: a request was dropped or answered twice")
+        check(sum(stats[label]["batch_sizes"]) == len(want), f"{label}: pad slots answered")
+
+    # (c) every response against a standalone cp_als_fused on the card.
+    t0 = time.perf_counter()
+    worst = 0.0
+    for r in reqs:
+        alone = tfused.cp_als_fused(r.tensor, r.rank, n_iters=cfg.n_iters, tol=0.0, seed=r.seed,
+                                    impl="kernel", device=dev).fits[0]
+        for resp in [done[f"{r.request_id}-d{k}"] for k in range(SERVE_DRAIN_ROUNDS)] + [
+                replayed[r.request_id + "-replay"]]:
+            st = resp.state
+            check(len(st.fits) == cfg.n_iters and np.isfinite(st.fits).all(),
+                  f"{resp.request_id}: fits {st.fits}")
+            check([tuple(f.shape) for f in st.factors] == [(d, r.rank) for d in r.tensor.shape]
+                  and tuple(st.weights.shape) == (r.rank,), f"{resp.request_id}: not trimmed")
+            worst = max(worst, float(np.max(np.abs(np.array(st.fits) - alone))))
+    print(f"  every response vs a standalone cp_als_fused(impl='kernel') on the card, same seed: "
+          f"max fit gap {worst:.3e} over {(SERVE_DRAIN_ROUNDS + 1) * len(reqs)} responses "
+          f"(tol {tfused.FUSED_FIT_TOL}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(worst <= tfused.FUSED_FIT_TOL, f"a served response differs from cp_als_fused by {worst}")
+    first = reqs[0]
+    print(f"  {first.request_id}: rank {first.rank}, fits {done[first.request_id + '-d0'].state.fits}")
+
+    # (a) one batch's stacked MTTKRP per mode, kernel against plain.
+    sig = sigs[reqs[0].request_id]
+    members = [r for r in reqs if sigs[r.request_id] == sig][:SERVE_MAX_BATCH]
+    members += [members[0]] * (SERVE_MAX_BATCH - len(members))
+    tensors = [r.tensor for r in members]
+    facs = factors_on([SERVE_MAX_BATCH * d for d in sig.dims], sig.rank_pad, dev, seed=9)
+    s_idx, s_val, _ = ops.stacked_operands(tensors, sig.dims, sig.nnz_pad, device=dev)
+    rows = []
+    for mode in range(sig.nmodes):
+        bufs = ops.stacked_plan_buffers(s_idx, s_val, [t.nnz for t in tensors], sig.dims, mode)
+        i_out = SERVE_MAX_BATCH * sig.dims[mode]
+        got = kmod.mttkrp_cuda(bufs, facs, mode, i_out)
+        same = torch.equal(got, kmod.mttkrp_cuda(bufs, facs, mode, i_out))
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = compare(bufs, facs, mode, i_out, got, F32_TOL)
+        del got
+        ms = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, mode, i_out), TIMING_REPS)
+        plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, mode, i_out), TIMING_REPS, 1)
+        nnz_pad, nblocks = int(bufs.values.shape[0]), int(bufs.block_real_end.shape[0])
+        nbytes = (nnz_pad * 4 * (sig.nmodes + 1) + (nblocks + 1) * 8
+                  + sum(SERVE_MAX_BATCH * d * sig.rank_pad * 4 for d in sig.dims))
+        flops = nnz_pad * sig.rank_pad * (sig.nmodes + 1)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+        rows.append(dict(ms=ms, plain_ms=plain, bound_ms=bound, max_abs=max_abs, ok=ok, same=same))
+        print(f"  stacked MTTKRP mode {mode} (B={SERVE_MAX_BATCH}, rank_pad {sig.rank_pad}, "
+              f"nnz_pad {nnz_pad}, {nblocks} blocks, {i_out} rows): split {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bound {bound:.4f} ms; max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+              f"{'ok' if ok else 'FAIL'} (tol {F32_TOL:g} x scale); two launches bit for bit "
+              f"{'equal' if same else 'DIFFER'}  [{card}]")
+    check(all(r["ok"] for r in rows), "the stacked MTTKRP disagrees with its plain version")
+    check(all(r["same"] for r in rows), "two launches on a stacked plan differ")
+    del facs
+
+    del s_idx, s_val, bufs
+
+    host_waits(dev, sig.dims)
+    # (b) staging and run_batch enqueue without a host-device synchronisation:
+    # the sync debug mode does not see every synchronising call, so each is
+    # also queued behind a sleep, and the host must get back before it ends.
+    executor = BucketExecutor(sig, device=dev)
+    staged, stage_host_ms, ended = behind_a_sleep(
+        lambda: executor.stage(members, pad_to=SERVE_MAX_BATCH))
+    check(not ended, "staging a batch waited for the device")
+    *operands, plans = staged
+    _, short_ms, ended = behind_a_sleep(
+        lambda: executor.core.run_batch(*operands, n_iters=SLEEP_CHECK_SWEEPS, plans=plans))
+    check(not ended, "run_batch waited for the device")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        executor.core.run_batch(*operands, n_iters=sig.n_iters, plans=plans)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  behind a {SLEEP_CYCLES:.0e}-cycle sleep the host got back before it ended: staging "
+          f"(uploads, plans) in {stage_host_ms:.1f} ms, run_batch of {SLEEP_CHECK_SWEEPS} sweeps "
+          f"in {short_ms:.1f} ms; run_batch of {sig.n_iters} sweeps under "
+          f"set_sync_debug_mode('error'): no synchronisation, enqueued in {enqueue_ms:.1f} ms")
+    del staged, operands, plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    executor.launch(members, pad_to=SERVE_MAX_BATCH)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_batch(executor, members, batch_ms)
+    print(f"  host: draw {draw_s:.1f} s; one batch staged in {stage_host_ms:.1f} ms and enqueued "
+          f"in {enqueue_ms:.1f} ms, done after {batch_ms:.1f} ms")
+    return dict(launches=launches, by_variant=by_variant, peak_gb=peak_gb, stats=stats,
+                batch_ms=batch_ms, profile_ms=prof, draw_s=draw_s,
+                stage_host_ms=stage_host_ms, enqueue_ms=enqueue_ms,
+                stacked_ms=[r["ms"] for r in rows], stacked_plain_ms=[r["plain_ms"] for r in rows],
+                stacked_bound_ms=[r["bound_ms"] for r in rows],
+                stacked_max_abs=max(r["max_abs"] for r in rows))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -822,6 +1167,16 @@ def main() -> int:
     print(f"device memory held after the CP-ALS phases: {held_gb:.2f} GB, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after clearing the plan memos")
     flash_entry = lm_phases(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = service_phase(dev, card)
+    mttkrp_entry["launches_by_path"] = {"cp_als (phase 3)": mttkrp_entry["launches"],
+                                        "service (phase 9)": served["launches"]}
+    mttkrp_entry["launches"] += served["launches"]
+    mttkrp_entry["max_abs_err"] = max(mttkrp_entry["max_abs_err"], served["stacked_max_abs"])
+    mttkrp_entry["service"] = {k: served[k] for k in (
+        "stats", "batch_ms", "profile_ms", "peak_gb", "stage_host_ms", "enqueue_ms", "stacked_ms",
+        "stacked_plain_ms", "stacked_bound_ms")}
     total_s = time.perf_counter() - T_START
     print(f"total {total_s:.1f} s")
     kernels = [mttkrp_entry, flash_entry]

@@ -19,7 +19,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["cpstate_to_numpy", "factors_from_numpy", "lm_params_from_numpy", "plan_from_numpy"]
+__all__ = [
+    "bucket_from_numpy",
+    "cpstate_to_numpy",
+    "factors_from_numpy",
+    "lm_params_from_numpy",
+    "plan_from_numpy",
+]
 
 
 def factors_from_numpy(
@@ -34,6 +40,26 @@ def factors_from_numpy(
         torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype).contiguous()
         for a in arrays
     ]
+
+
+def bucket_from_numpy(
+    indices: np.ndarray,
+    values: np.ndarray,
+    norm2: np.ndarray,
+    factors: Sequence[np.ndarray],
+    *,
+    device: str | torch.device,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...]]:
+    """A bucket batch's operands for ``MultiTensorCPALS.run_batch``: padded
+    COO ``(B, nnz_pad, N)`` indices, ``(B, nnz_pad)`` values and ``(B,)``
+    norms (in ``promote_types(dtype, float32)``), and ``(B, I_k_pad, R_pad)``
+    initial factors in ``dtype``, as a JAX bucket passes them."""
+    dev = resolve_device(device)
+    compute = torch.promote_types(dtype, torch.float32)
+    idx = torch.from_numpy(np.array(indices, dtype=np.int32)).to(dev)
+    vals, n2 = factors_from_numpy([values, norm2], device=dev, dtype=compute)
+    return idx, vals, n2, tuple(factors_from_numpy(factors, device=dev, dtype=dtype))
 
 
 def cpstate_to_numpy(state: CPState) -> tuple[list[np.ndarray], np.ndarray]:

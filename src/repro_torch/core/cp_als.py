@@ -85,10 +85,31 @@ def init_factor_tensors(
 def reconstruct_values(
     indices: torch.Tensor, factors: Sequence[torch.Tensor], weights: torch.Tensor
 ) -> torch.Tensor:
-    """X_hat at the given coordinates; ``(..., nnz)`` for factors ``(..., I_k, R)``."""
-    prod = factors[0].index_select(-2, indices[:, 0])
-    for k in range(1, len(factors)):
-        prod = prod * factors[k].index_select(-2, indices[:, k])
+    """X_hat at the given coordinates; ``(..., nnz)`` for factors ``(..., I_k, R)``.
+
+    ``indices`` is ``(nnz, N)``, shared by every factor set of the batch, or
+    ``(B, nnz, N)``: one tensor's coordinates per factor set (the
+    multi-tensor executor).  The latter is gathered in stacked form, tensor
+    ``b``'s rows offset by ``b * I_k`` in factors viewed as ``(B * I_k, R)``.
+    """
+    if indices.dim() == 2:
+        prod = factors[0].index_select(-2, indices[:, 0])
+        for k in range(1, len(factors)):
+            prod = prod * factors[k].index_select(-2, indices[:, k])
+        return torch.matmul(prod, weights.unsqueeze(-1)).squeeze(-1)
+    batch, nnz, nmodes = (int(n) for n in indices.shape)
+    tenant = torch.arange(batch, dtype=indices.dtype, device=indices.device)
+    offsets = torch.stack([tenant * f.shape[-2] for f in factors], dim=-1)  # (B, N)
+    rows = (indices + offsets.unsqueeze(1)).view(batch * nnz, nmodes)
+    # Gather by the columns of ``rows``, as the one-tensor branch does: a
+    # contiguous index takes PyTorch's vectorized_gather_kernel, and a served
+    # batch's 30 gathers took 302.7 ms that way against 12.5 ms by columns
+    # (chip_smoke.py phase 9 profile, NVIDIA H100 80GB HBM3, 700.00 W).
+    prod = None
+    for k, f in enumerate(factors):
+        g = f.reshape(-1, f.shape[-1]).index_select(0, rows[:, k])
+        prod = g if prod is None else prod * g
+    prod = prod.view(batch, nnz, -1)
     return torch.matmul(prod, weights.unsqueeze(-1)).squeeze(-1)
 
 
@@ -101,6 +122,15 @@ def _fit(
     *,
     nnz_chunk: int = FIT_NNZ_CHUNK,
 ) -> torch.Tensor:
+    """The CP fit ``1 - ||X - X_hat|| / ||X||`` (the math of
+    ``repro.core.cp_als._fit``, residual clamped at 0).
+
+    Shapes: ``indices`` ``(nnz, N)`` and ``values`` ``(nnz,)`` for one
+    tensor (factors ``(I_k, R)``, or ``(B, I_k, R)`` restarts of it), or
+    ``(B, nnz, N)`` and ``(B, nnz)`` for B distinct tensors with factors
+    ``(B, I_k, R)``, weights ``(B, R)`` and ``tensor_norm2`` ``(B,)``.
+    The inner product runs in chunks of ``nnz_chunk`` nonzeros.
+    """
     grams = [f.mT @ f for f in factors]
     had = grams[0]
     for g in grams[1:]:
@@ -108,14 +138,38 @@ def _fit(
     w = weights.unsqueeze(-1)
     xhat_norm2 = (w.mT @ had @ w)[..., 0, 0].to(tensor_norm2.dtype)
     inner = torch.zeros_like(xhat_norm2)
-    for lo in range(0, int(values.shape[0]), nnz_chunk):
-        recon = reconstruct_values(indices[lo : lo + nnz_chunk], factors, weights)
-        inner = inner + torch.matmul(recon.to(values.dtype), values[lo : lo + nnz_chunk])
+    for lo in range(0, int(values.shape[-1]), nnz_chunk):
+        recon = reconstruct_values(indices[..., lo : lo + nnz_chunk, :], factors, weights)
+        vals = values[..., lo : lo + nnz_chunk]
+        if vals.dim() == 1:
+            inner = inner + torch.matmul(recon.to(values.dtype), vals)
+        else:  # one tensor per factor set: a dot product per batch entry
+            inner = inner + torch.matmul(recon.to(values.dtype).unsqueeze(-2),
+                                         vals.unsqueeze(-1))[..., 0, 0]
     resid2 = torch.clamp(tensor_norm2 - 2.0 * inner + xhat_norm2, min=0.0)
     # An all-zero tensor has ||X|| = 0: report fit 0 instead of 0/0.
     safe_norm2 = torch.where(tensor_norm2 > 0.0, tensor_norm2, torch.ones_like(tensor_norm2))
     fit = 1.0 - torch.sqrt(resid2) / torch.sqrt(safe_norm2)
     return torch.where(tensor_norm2 > 0.0, fit, torch.zeros_like(fit))
+
+
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x`` with ``a @ x = b`` by LU, never waiting for the device.
+
+    ``solve_ex`` without its error check: ``torch.linalg.solve`` reads the
+    LU's info on the host.  On the card the solve is also routed to cuSOLVER
+    and cuBLAS for the call: for small ranks against up to 1024 right-hand
+    sides PyTorch's default takes MAGMA's batched solve, which waits for the
+    device (``chip_smoke.py`` phase 9 lists the shapes at which it does).
+    """
+    if a.device.type != "cuda":
+        return torch.linalg.solve_ex(a, b, check_errors=False).result
+    previous = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(a, b, check_errors=False).result
+    finally:
+        torch.backends.cuda.preferred_linalg_library(previous)
 
 
 def _mode_update(
@@ -127,7 +181,7 @@ def _mode_update(
     column normalization into the CP lambda (norms clamped at 1e-12) —
     the math of ``repro.core.cp_als._mode_update``.  The solve runs in
     ``promote_types(m.dtype, float32)``; the new factor is contiguous, as
-    the kernel requires.
+    the kernel requires.  Nothing here waits for the device.
     """
     rank = int(m.shape[-1])
     solve_dtype = torch.promote_types(m.dtype, torch.float32)
@@ -138,7 +192,7 @@ def _mode_update(
             had = had * (fk.mT @ fk)
     eye = torch.eye(rank, dtype=solve_dtype, device=m.device)
     # Solve A_mode @ had = m  (had is SPD up to rank deficiency).
-    a_new = torch.linalg.solve(had + 1e-8 * eye, m.mT.to(solve_dtype)).mT
+    a_new = _solve(had + 1e-8 * eye, m.mT.to(solve_dtype)).mT
     norms = torch.clamp(torch.linalg.vector_norm(a_new, dim=-2), min=1e-12)
     out = list(factors)
     out[mode] = (a_new / norms.unsqueeze(-2)).to(factors[mode].dtype).contiguous()

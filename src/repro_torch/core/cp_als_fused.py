@@ -15,8 +15,10 @@ The counterpart of ``repro.core.cp_als_fused.FusedCPALS``:
 The sweep math is the eager driver's (``cp_als._mode_update``,
 ``cp_als._fit``), so fused and eager trajectories differ only by float
 re-association; ``FUSED_FIT_TOL`` is that tolerance, as in the JAX package.
-Only the ``"lex"`` plan ordering is ported; the sharded executor and
-``MultiTensorCPALS`` are not ported yet.
+``MultiTensorCPALS`` runs the same sweep over a batch of distinct tensors
+of one padded geometry (the service, ``repro_torch.serve``), every mode's
+MTTKRP one launch over the batch's stacked plan.  Only the ``"lex"`` plan
+ordering is ported; the sharded executor is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,14 +39,23 @@ from repro_torch.core.cp_als import (
 from repro_torch.core.mttkrp import check_impl, mttkrp_ref
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels.mttkrp.kernel import mttkrp_cuda
 from repro_torch.kernels.mttkrp.ops import (
+    PlanBuffers,
     get_plan,
     mttkrp_from_plan,
     plan_device_buffers,
     tensor_device_operands,
 )
+from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref
 
-__all__ = ["FUSED_FIT_TOL", "BatchedCPState", "FusedCPALS", "cp_als_fused"]
+__all__ = [
+    "FUSED_FIT_TOL",
+    "BatchedCPState",
+    "FusedCPALS",
+    "MultiTensorCPALS",
+    "cp_als_fused",
+]
 
 # Fused-vs-eager (and port-vs-JAX) fit tolerance: same math, float
 # summations re-associated.
@@ -235,6 +246,90 @@ class FusedCPALS:
             fits=fits_mat,
             sync_count=syncs,
         )
+
+
+class MultiTensorCPALS:
+    """Fused CP-ALS over a batch of DISTINCT tensors with one geometry.
+
+    The counterpart of ``repro.core.cp_als_fused.MultiTensorCPALS``, the
+    executor of the multi-tenant service.  All tensors of a batch are
+    padded to the same ``(shape, nnz_pad)`` and their factors to the same
+    rank; zero-value nonzeros, zero factor rows and zero rank columns leave
+    each tensor's result unchanged.
+
+    Where the JAX executor runs ``mttkrp_ref`` vmapped over the batch, this
+    one takes the batch as one block-diagonal tensor: ``run_batch`` gets,
+    besides the JAX arguments, the batch's stacked plan for every mode
+    (``kernels.mttkrp.ops.stacked_plan_buffers``), and each mode's MTTKRP is
+    one launch of the split kernel over factors viewed as ``(B * I_k, R)``.
+    On CPU tensors the plain version runs on the same stacked buffers.
+    """
+
+    def __init__(self, shape: Sequence[int], *, nnz_pad: int, rank: int) -> None:
+        if nnz_pad < 1:
+            raise ValueError(f"nnz_pad must be >= 1, got {nnz_pad}")
+        if rank < 1:
+            raise ValueError(f"rank must be >= 1, got {rank}")
+        self.shape = tuple(int(s) for s in shape)
+        self.nmodes = len(self.shape)
+        self.nnz_pad = int(nnz_pad)
+        self.rank = int(rank)
+
+    def _mttkrp(self, plan: PlanBuffers, factors: Sequence[torch.Tensor], mode: int):
+        batch = int(factors[0].shape[0])
+        flat = [f.view(-1, self.rank) for f in factors]  # (B * I_k, R)
+        i_out = batch * self.shape[mode]
+        if flat[0].device.type == "cuda":
+            out = mttkrp_cuda(plan, flat, mode, i_out)
+        else:
+            out = mttkrp_plan_ref(plan, flat, mode, i_out)
+        return out.view(batch, self.shape[mode], self.rank).to(factors[mode].dtype)
+
+    def run_batch(
+        self,
+        indices: torch.Tensor,  # (B, nnz_pad, nmodes) int32
+        values: torch.Tensor,  # (B, nnz_pad)
+        norm2: torch.Tensor,  # (B,)
+        factors: Sequence[torch.Tensor],  # per mode: (B, I_k_pad, rank)
+        *,
+        n_iters: int,
+        plans: Sequence[PlanBuffers],
+    ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
+        """Run ``n_iters`` fused sweeps on every tensor in the batch.
+
+        ``plans`` (one per mode, the batch's stacked plan in the order of the
+        batch) is the port's argument; the rest are the JAX executor's.
+        Returns ``(factors, weights, fits)`` with ``fits`` of shape
+        ``(B, n_iters)``, all left on the device.  On CUDA tensors nothing
+        here waits for the device: the caller decides when to read.
+        """
+        if n_iters < 1:
+            raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+        if tuple(indices.shape[1:]) != (self.nnz_pad, self.nmodes):
+            raise ValueError(
+                f"indices shape {tuple(indices.shape)} does not match geometry "
+                f"(B, {self.nnz_pad}, {self.nmodes})"
+            )
+        batch = int(indices.shape[0])
+        for k, f in enumerate(factors):
+            if tuple(f.shape[1:]) != (self.shape[k], self.rank):
+                raise ValueError(
+                    f"factor {k} shape {tuple(f.shape)} does not match geometry "
+                    f"(B, {self.shape[k]}, {self.rank})"
+                )
+            if f.shape[0] != batch or not f.is_contiguous():
+                raise ValueError(f"factor {k} must be a contiguous batch of {batch}")
+        if len(plans) != self.nmodes:
+            raise ValueError(f"{len(plans)} stacked plans for {self.nmodes} modes")
+        factors = tuple(factors)
+        weights = torch.ones((batch, self.rank), dtype=factors[0].dtype, device=factors[0].device)
+        fits = []
+        for _ in range(n_iters):
+            for mode in range(self.nmodes):
+                m = self._mttkrp(plans[mode], factors, mode)
+                factors, weights = _mode_update(factors, weights, m, mode)
+            fits.append(_fit(norm2, indices, values, factors, weights))
+        return factors, weights, torch.stack(fits, dim=-1)
 
 
 def cp_als_fused(

@@ -128,6 +128,23 @@ def test_mode_update_matches_jax():
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-4)
 
 
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_mode_update_solve_gives_the_checked_solve_s_factors(lead):
+    """The unchecked solve (no host read of the LU's info) returns the
+    factors the checked ``torch.linalg.solve`` returned, bit for bit."""
+    rng = np.random.default_rng(14)
+    facs = [torch.from_numpy(rng.random(lead + (s, 6)).astype(np.float32)) for s in (9, 7, 6)]
+    m = torch.from_numpy(rng.standard_normal(lead + (7, 6)).astype(np.float32))
+    got_f, got_w = tcp._mode_update(facs, torch.ones(lead + (6,)), m, 1)
+    had = torch.ones(lead + (6, 6))
+    for k in (0, 2):
+        had = had * (facs[k].mT @ facs[k])
+    a_new = torch.linalg.solve(had + 1e-8 * torch.eye(6), m.mT).mT
+    norms = torch.clamp(torch.linalg.vector_norm(a_new, dim=-2), min=1e-12)
+    assert torch.equal(got_f[1], a_new / norms.unsqueeze(-2))
+    assert torch.equal(got_w, norms)
+
+
 def test_bf16_factors_run_finite():
     t, _ = _pair((20, 15, 10), 300, seed=13)
     s = tcp.cp_als(t, 4, n_iters=3, tol=0.0, impl="kernel", device="cpu", dtype=torch.bfloat16)

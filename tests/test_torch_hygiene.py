@@ -18,6 +18,7 @@ from repro_torch.core.sparse_tensor import random_sparse_tensor
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
 from repro_torch.models import model_zoo as tzoo
+from repro_torch import serve as tserve
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -71,6 +72,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported"):
         tdevice.resolve_device("meta")
+
+
+def test_service_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.DecompositionService()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.DecompositionService(device="cuda")
+    assert tserve.DecompositionService(device="cpu").device == torch.device("cpu")
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
