@@ -69,13 +69,30 @@ Phases, each of which fails the run (exit code 1, no result line):
      behind a sleep (the host must return first) and ``run_batch`` under
      ``torch.cuda.set_sync_debug_mode("error")``, every response against a
      standalone ``cp_als_fused`` on the card (FUSED_FIT_TOL), and a
-     ``torch.profiler`` trace of one batch, staging included.
+     ``torch.profiler`` trace of one batch, staging included;
+ 10. the nonzero orderings (lex, secondary-sort, degree, blocked) on phase
+     3's tensor, run right after phase 5 while its tensor and lex plans are
+     resident: per ordering the order of each mode sorted on the card
+     (CUDA-event ms; mode 0 array-equal to the CPU's), the plans and their
+     contiguity flag and padding, each mode's split kernel in the mode its
+     plan picks (row-run for the first three, tile for blocked) against
+     the plain version (1e-4 of the sum of absolute terms) with a bit-for-bit
+     repeat, at B=1 and at B=4 (the fused run's initial factors), the times
+     of the split kernel in that mode (B=1 and 4) and in tile mode, the
+     block kernel and the plain version beside the byte bound, and one
+     ``cp_als_fused(ordering=o, restarts=4, impl="kernel")`` of 5 sweeps
+     whose fits must stay within FUSED_FIT_TOL of phase 3's lex run, its
+     launches counted by variant and mode (all split, 0 block); on the
+     blocked plans, a ``torch.profiler`` trace of one sweep splits the tile
+     mode's time between its main launch and its carry pass.  Blocked runs
+     second, after lex; each ordering's plans are freed before the next.
 
 The last three lines are the card's ``name, power.limit``, a JSON object
-with the main paths' kernels' numbers (the split MTTKRP kernel with the
-block kernel's time as ``previous_ms`` and its launches over both CP-ALS
-main paths, phases 3 and 9, and the wgmma flash kernel with the
-``mma.sync`` kernel's), and
+with the main paths' kernels' numbers (the split MTTKRP kernel's row-run
+mode with the block kernel's time as ``previous_ms``, its launches over
+the CP-ALS paths of phases 3, 9 and 10 and its per-ordering times; its
+tile mode, on the blocked plans of phase 10; and the wgmma flash kernel
+with the ``mma.sync`` kernel's), and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
@@ -109,6 +126,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import kernel as kmod  # noqa: E402
 from repro_torch.kernels.mttkrp import ops  # noqa: E402
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref  # noqa: E402
+from repro_torch.reorder import strategies as tstrat  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.data.lm_data import SyntheticLMStream  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkmod  # noqa: E402
@@ -383,9 +401,10 @@ def mttkrp_flops(plan, rank: int) -> int:
     return plan.nnz_pad * rank * (len(plan.shape) + 1)
 
 
-def cp_als_phases(dev, card: str) -> dict:
-    """Phases 3-5: the CP-ALS main path at NELL-2 Table II size; the MTTKRP
-    kernel's entry of the ``kernels`` line."""
+def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray]:
+    """Phases 3-5: the CP-ALS main path at NELL-2 Table II size.  Returns the
+    MTTKRP kernel's entry of the ``kernels`` line, the tensor and the fused
+    run's fits (restarts x sweeps), for phase 10."""
     # -- phase 3: the main path at Table II size -----------------------------
     phase("phase 3: NELL-2 stand-in at Table II size, rank 16")
     t0 = time.perf_counter()
@@ -530,7 +549,169 @@ def cp_als_phases(dev, card: str) -> dict:
         split_ctas=split_ctas,
         launches_by_variant=by_variant,
     )
-    return kern
+    return kern, tensor, fused.fits
+
+
+ORDERINGS = ("lex", "secondary-sort", "degree", "blocked")
+# Phase 10 runs blocked right after lex (whose plans are phase 3's), so
+# that the tile mode's profile on blocked plans is the phase's only one
+# and comes before the other orderings' plan builds.
+PHASE10_ORDER = ("lex", "blocked", "secondary-sort", "degree")
+
+
+def device_ms_by_kernel(fn, launches: int, tries: int = 3) -> dict:
+    """Device ms and launch count by kernel in one call of ``fn``
+    (torch.profiler), keyed "carry" for the carry pass and "main" for the
+    rest.  Within this script the profiler has recorded fewer launches than
+    ``fn`` made (PERF.md §7), so the call is profiled again, up to ``tries``
+    times, until each kernel shows ``launches``; the last reading is
+    returned either way, its counts beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                key = "carry" if "carry" in e.key else "main"
+                ms, n = out.get(key, (0.0, 0))
+                out[key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        if set(out) == {"main", "carry"} and all(n == launches for _, n in out.values()):
+            break
+    return {k: dict(ms=ms, launches=n) for k, (ms, n) in out.items()}
+
+
+def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
+    """Phase 10: each nonzero ordering at NELL-2 Table II size, phase 3's
+    tensor.  Per ordering: the ordered plans (the order sorted on the card,
+    held array-equal to the CPU's on mode 0), their contiguity flag, each
+    mode's split kernel (in the mode its plan picks) against the plain
+    version with a bit-for-bit repeat, at B=1 and at B=RESTARTS (the fused
+    run's initial factors, as phase 4), the times of the split kernel in
+    both modes, the block kernel and the plain version beside the bound,
+    and a fused CP-ALS run whose fits must stay within FUSED_FIT_TOL of
+    phase 3's lex run.  On the blocked plans, one profiled sweep splits the
+    tile mode's time between its two launches.  Each ordering's plans are
+    freed before the next."""
+    phase(f"phase 10: the orderings {ORDERINGS} at NELL-2 Table II size, rank {RANK}")
+    ctas, warps = kmod.tile_grid(tensor.nmodes, 256, torch.float32, dev)
+    print(f"  tile mode: {ctas} CTAs x {warps} warps ({ctas * warps} slices, "
+          f"{ctas * warps // torch.cuda.get_device_properties(dev).multi_processor_count} warps "
+          f"per SM); row-run mode: {kmod.split_slices(tensor.nmodes, 1, torch.float32, dev)} slices")
+    idx_dev = torch.as_tensor(tensor.indices, device=dev)
+    results, launches = {}, collections.Counter()
+    for o in PHASE10_ORDER:
+        t_start = time.perf_counter()
+        if o != "lex":  # lex keeps phase 3's plans (its host argsort), memoized
+            ops.clear_caches()
+            gc.collect()
+        # The order on the card, timed by CUDA events, then held against the CPU's.
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        orders = [tstrat.nonzero_order_tensor(idx_dev, tensor.shape, m, o)
+                  for m in range(tensor.nmodes)]
+        end.record()
+        end.synchronize()
+        order_ms = start.elapsed_time(end)
+        t0 = time.perf_counter()
+        on_cpu = tstrat.nonzero_order(tensor, 0, o, device="cpu")
+        cpu_order_s = time.perf_counter() - t0
+        same_order = bool(np.array_equal(orders[0].cpu().numpy(), on_cpu))
+        del orders, on_cpu
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(tensor.nmodes) as pool:
+            plans = list(pool.map(lambda m: ops.get_plan(tensor, m, ordering=o, device=dev),
+                                  range(tensor.nmodes)))
+        bufs_all = [ops.plan_device_buffers(p, dev) for p in plans]
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        print(f"  {o}: order on the card {order_ms:.2f} ms device for 3 modes (mode 0 array-equal "
+              f"to the CPU's: {same_order}, CPU {cpu_order_s:.2f} s); plans + upload "
+              f"{plan_s:.2f} s host{' (phase 3 memo)' if o == 'lex' else ''}; rows contiguous "
+              f"{[p.rows_contiguous for p in plans]}; padding overhead "
+              f"{[round(p.padding_overhead, 6) for p in plans]}")
+        check(same_order, f"{o}: the card's order differs from the CPU's")
+        facs = tcp.cp_init(tensor, RANK, seed=7, device=dev)
+        inits = [tcp.cp_init(tensor, RANK, seed=s, device=dev) for s in range(RESTARTS)]
+        batched = [torch.stack(per_mode).contiguous() for per_mode in zip(*inits)]
+        del inits
+        rows = []
+        for p, bufs in zip(plans, bufs_all):
+            i_out = p.shape[p.mode]
+            mode_name = kmod.split_mode_for(bufs, None)
+            got = kmod.mttkrp_cuda(bufs, facs, p.mode, i_out)
+            got_b = kmod.mttkrp_cuda(bufs, batched, p.mode, i_out)
+            same = (torch.equal(got, kmod.mttkrp_cuda(bufs, facs, p.mode, i_out))
+                    and torch.equal(got_b, kmod.mttkrp_cuda(bufs, batched, p.mode, i_out)))
+            torch.cuda.synchronize()
+            max_abs, max_rel, ok = compare(bufs, facs, p.mode, i_out, got, F32_TOL)
+            check(got_b.shape == (RESTARTS, i_out, RANK), f"batched output shape {tuple(got_b.shape)}")
+            max_abs_b, max_rel_b, ok_b = compare(bufs, batched, p.mode, i_out, got_b, F32_TOL)
+            del got, got_b
+            ms = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out), TIMING_REPS)
+            ms_b = median_ms(lambda: kmod.mttkrp_cuda(bufs, batched, p.mode, i_out), TIMING_REPS)
+            tiles = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out,
+                                                       split_mode="tiles"), TIMING_REPS)
+            block = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out, variant="block"),
+                              TIMING_REPS)
+            plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, p.mode, i_out), TIMING_REPS, 1)
+            nbytes, flops = mttkrp_bytes(p, RANK), mttkrp_flops(p, RANK)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+            rows.append(dict(mode=p.mode, split_mode=mode_name, ms=ms, ms_b4=ms_b, tiles_ms=tiles,
+                             block_ms=block, plain_ms=plain, bound_ms=bound,
+                             max_abs=max(max_abs, max_abs_b), ok=ok and ok_b, same=same))
+            print(f"    mode {p.mode}: split ({mode_name}) {ms:.3f} ms (B={RESTARTS}: {ms_b:.3f} ms), "
+                  f"tile mode {tiles:.3f} ms, block {block:.3f} ms, plain {plain:.3f} ms, bound "
+                  f"{bound:.4f} ms (share {bound / ms:.4f}); B=1 max_abs {max_abs:.3e} max_rel "
+                  f"{max_rel:.3e} {'ok' if ok else 'FAIL'}, B={RESTARTS} max_abs {max_abs_b:.3e} "
+                  f"max_rel {max_rel_b:.3e} {'ok' if ok_b else 'FAIL'} (tol {F32_TOL:g} x scale); "
+                  f"two launches bit for bit {'equal' if same else 'DIFFER'}  [{card}]")
+        tile_split = {}
+        if o == "blocked":  # the tile mode's two launches apart, one sweep at B=1
+            tile_split = device_ms_by_kernel(lambda: [
+                kmod.mttkrp_cuda(b, facs, p.mode, p.shape[p.mode]) for p, b in zip(plans, bufs_all)],
+                launches=len(plans))
+            print(f"    profile of one B=1 sweep in the tile mode ({len(plans)} launches of each): " + (
+                ", ".join(f"{k} {v['ms']:.3f} ms over {v['launches']} recorded launches"
+                          for k, v in tile_split.items()) or "not measured") + f"  [{card}]")
+        del facs, batched
+        check(all(r["ok"] for r in rows), f"{o}: the split kernel disagrees with plain")
+        check(all(r["same"] for r in rows), f"{o}: two launches of the split kernel differ")
+        # The path: fused CP-ALS with this ordering, launches counted.
+        kmod.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = tfused.cp_als_fused(tensor, RANK, n_iters=SWEEPS, tol=0.0, seed=0, restarts=RESTARTS,
+                                  fit_every=SWEEPS, impl="kernel", device=dev, ordering=o)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+        by_mode = dict(kmod.mttkrp_cuda.launches_by_mode)
+        gap = float(np.max(np.abs(run.fits - lex_fits)))
+        want_mode = "tiles" if o == "blocked" else "rows"
+        print(f"    cp_als_fused(ordering={o!r}, restarts={RESTARTS}, impl='kernel'): {fused_s:.3f} s "
+              f"for {SWEEPS} sweeps, final fits {[round(float(f), 6) for f in run.fits[:, -1]]}, "
+              f"max gap to phase 3's lex fits {gap:.3e} (tol {tfused.FUSED_FIT_TOL}); launches by "
+              f"variant {by_variant}, by mode {by_mode}")
+        check(np.isfinite(run.fits).all() and gap <= tfused.FUSED_FIT_TOL,
+              f"{o}: fused fits differ from lex by {gap}")
+        expected = SWEEPS * tensor.nmodes
+        check(by_variant == {"split": expected, "block": 0} and by_mode[want_mode] == expected,
+              f"{o}: the path's MTTKRPs did not all take the split kernel's {want_mode} mode")
+        launches[want_mode] += expected
+        results[o] = dict(rows=rows, order_ms=order_ms, plan_s=plan_s, fused_s=fused_s,
+                          fit_gap=gap, launches_by_mode=by_mode, tile_split_ms=tile_split,
+                          rows_contiguous=[p.rows_contiguous for p in plans],
+                          padding_overhead=[p.padding_overhead for p in plans],
+                          seconds=time.perf_counter() - t_start)
+        del plans, bufs_all, run
+    ops.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(results=results, launches=dict(launches))
 
 
 def flash_cases(dev) -> None:
@@ -1158,7 +1339,10 @@ def main() -> int:
     phase("phase 2: kernel vs plain version on the card")
     phase_kernel_cases(dev)
 
-    mttkrp_entry = cp_als_phases(dev, card)
+    mttkrp_entry, nell2, lex_fits = cp_als_phases(dev, card)
+    # Phase 10 runs here, while phase 3's tensor and lex plans are resident.
+    ordered = ordering_phase(dev, card, nell2, lex_fits)
+    del nell2
     gc.collect()
     held_gb = torch.cuda.memory_allocated() / 1e9
     ops.clear_caches()  # the memos pin the NELL-2 plans' device buffers
@@ -1170,16 +1354,54 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served = service_phase(dev, card)
-    mttkrp_entry["launches_by_path"] = {"cp_als (phase 3)": mttkrp_entry["launches"],
-                                        "service (phase 9)": served["launches"]}
-    mttkrp_entry["launches"] += served["launches"]
-    mttkrp_entry["max_abs_err"] = max(mttkrp_entry["max_abs_err"], served["stacked_max_abs"])
+    row_run = ordered["launches"].get("rows", 0)
+    mttkrp_entry["launches_by_path"] = {
+        "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
+        "cp_als_fused, lex / secondary-sort / degree (phase 10)": row_run}
+    mttkrp_entry["launches"] += served["launches"] + row_run
+    mttkrp_entry["max_abs_err"] = max(
+        [mttkrp_entry["max_abs_err"], served["stacked_max_abs"]]
+        + [r["max_abs"] for o, res in ordered["results"].items() if o != "blocked"
+           for r in res["rows"]])
+    mttkrp_entry["per_ordering"] = {
+        o: dict(split_mode=[r["split_mode"] for r in res["rows"]],
+                per_mode_ms=[r["ms"] for r in res["rows"]],
+                per_mode_ms_b4=[r["ms_b4"] for r in res["rows"]],
+                per_mode_tiles_ms=[r["tiles_ms"] for r in res["rows"]],
+                per_mode_block_ms=[r["block_ms"] for r in res["rows"]],
+                per_mode_plain_ms=[r["plain_ms"] for r in res["rows"]],
+                per_mode_bound_ms=[r["bound_ms"] for r in res["rows"]],
+                order_device_ms=res["order_ms"], plan_host_s=res["plan_s"],
+                fused_fit_gap=res["fit_gap"])
+        for o, res in ordered["results"].items()}
+    blocked = ordered["results"]["blocked"]["rows"]
+    tile_entry = dict(
+        name="mttkrp_tile_kernel",
+        route="cuda",
+        source="src/repro_torch/kernels/mttkrp/csrc/mttkrp_split.cu",
+        replaces="src/repro/kernels/mttkrp/kernel.py:44",
+        launches=ordered["launches"].get("tiles", 0),
+        max_abs_err=max(r["max_abs"] for r in blocked),
+        ms=sum(r["ms"] for r in blocked),
+        previous_ms=sum(r["block_ms"] for r in blocked),
+        previous="mttkrp_block_kernel, csrc/mttkrp.cu, on the same blocked plans",
+        plain_ms=sum(r["plain_ms"] for r in blocked),
+        bound_ms=sum(r["bound_ms"] for r in blocked),
+        bound_by=mttkrp_entry["bound_by"],
+        library_ms=None,
+        per="one CP-ALS sweep of MTTKRPs over the blocked ordering's plans: modes 0-2, one restart",
+        per_mode_ms=[r["ms"] for r in blocked],
+        per_mode_ms_b4=[r["ms_b4"] for r in blocked],
+        per_mode_ms_on_lex_plans=[r["tiles_ms"] for r in ordered["results"]["lex"]["rows"]],
+        sweep_profile=ordered["results"]["blocked"]["tile_split_ms"],
+        launches_by_path={"cp_als_fused, blocked (phase 10)": ordered["launches"].get("tiles", 0)},
+    )
     mttkrp_entry["service"] = {k: served[k] for k in (
         "stats", "batch_ms", "profile_ms", "peak_gb", "stage_host_ms", "enqueue_ms", "stacked_ms",
         "stacked_plain_ms", "stacked_bound_ms")}
     total_s = time.perf_counter() - T_START
     print(f"total {total_s:.1f} s")
-    kernels = [mttkrp_entry, flash_entry]
+    kernels = [mttkrp_entry, tile_entry, flash_entry]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,7 @@ Fit is computed the standard sparse way without materializing the residual:
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -207,25 +207,68 @@ def cp_als(
     tol: float = 1e-5,
     seed: int = 0,
     impl: str = "ref",
+    mttkrp_fn: Callable | None = None,
     device: str | torch.device = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
     init_factors: Sequence | None = None,
+    fused: bool = False,
+    fit_every: int = 1,
+    restarts: int = 1,
     verbose: bool = False,
 ) -> CPState:
     """Alternating least squares for CPD.  Returns factors + fit trace.
 
     ``impl`` is ``"ref"`` or ``"kernel"`` (the counterpart of the JAX
-    ``impl="pallas"``).  ``device`` defaults to ``"cuda"`` and raises when
-    no GPU is present.  ``dtype`` is the factor storage dtype; values and
-    the tensor norm stay in ``promote_types(dtype, float32)``.
-    ``init_factors`` (one ``(I_k, rank)`` array per mode) replaces the
-    ``cp_init`` draw.  The fused executor with batched restarts is
-    ``repro_torch.core.cp_als_fused.cp_als_fused``.
+    ``impl="pallas"``).  ``mttkrp_fn(tensor, factors, mode) -> (I_mode, R)``
+    replaces the impl in the eager loop.  ``device`` defaults to ``"cuda"``
+    and raises when no GPU is present.  ``dtype`` is the factor storage
+    dtype; values and the tensor norm stay in
+    ``promote_types(dtype, float32)``.  ``init_factors`` (one
+    ``(I_k, rank)`` array per mode) replaces the ``cp_init`` draw.
+
+    ``fused=True`` delegates to the fused executor
+    (``repro_torch.core.cp_als_fused``): the host reads the fits once
+    every ``fit_every`` sweeps, and ``restarts > 1`` runs a batch of
+    restarts (seeds ``seed + i``, or, with ``init_factors``, one per-mode
+    list per restart) and returns the best-fit one.  The returned
+    ``CPState`` is the same type.
     """
     if tensor.nnz == 0:
         raise ValueError(
             "cp_als requires a tensor with at least one nonzero "
             "(an empty tensor has no factorization and an undefined fit)"
+        )
+    if fused:
+        if mttkrp_fn is not None:
+            raise ValueError(
+                "mttkrp_fn injection is a hook of the eager loop; the fused "
+                "executor owns its MTTKRP dispatch (use impl=)"
+            )
+        from repro_torch.core.cp_als_fused import cp_als_fused  # circular import
+
+        inits = None
+        if init_factors is not None:
+            inits = [init_factors] if restarts == 1 else list(init_factors)
+        return cp_als_fused(
+            tensor,
+            rank,
+            n_iters=n_iters,
+            tol=tol,
+            seed=seed,
+            impl=impl,
+            device=device,
+            dtype=dtype,
+            fit_every=fit_every,
+            restarts=restarts,
+            init_factors=inits,
+            verbose=verbose,
+        ).state
+    if restarts != 1:
+        raise ValueError("restarts > 1 requires fused=True (batched restarts)")
+    if fit_every != 1:
+        raise ValueError(
+            "fit_every requires fused=True (the eager loop syncs every "
+            "iteration by construction)"
         )
     dev = resolve_device(device)
     check_impl(impl)
@@ -241,16 +284,18 @@ def cp_als(
     indices, values, tensor_norm2 = tensor_device_operands(
         tensor, device=dev, dtype=compute_dtype
     )
+    if mttkrp_fn is None:
+        if impl == "ref":
+            mttkrp_fn = lambda t, f, m: mttkrp_ref((indices, values, t.shape), f, m)  # noqa: E731
+        else:
+            mttkrp_fn = lambda t, f, m: mttkrp(t, f, m, impl=impl)  # noqa: E731
 
     fits: list[float] = []
     fit_prev = -np.inf
     it = 0
     for it in range(1, n_iters + 1):
         for mode in range(tensor.nmodes):
-            if impl == "ref":
-                m = mttkrp_ref((indices, values, tensor.shape), factors, mode)
-            else:
-                m = mttkrp(tensor, factors, mode, impl=impl)  # (I_mode, R)
+            m = mttkrp_fn(tensor, factors, mode)  # (I_mode, R)
             factors, weights = _mode_update(factors, weights, m, mode)
 
         fit = float(_fit(tensor_norm2, indices, values, factors, weights))

@@ -17,8 +17,9 @@ The sweep math is the eager driver's (``cp_als._mode_update``,
 re-association; ``FUSED_FIT_TOL`` is that tolerance, as in the JAX package.
 ``MultiTensorCPALS`` runs the same sweep over a batch of distinct tensors
 of one padded geometry (the service, ``repro_torch.serve``), every mode's
-MTTKRP one launch over the batch's stacked plan.  Only the ``"lex"`` plan
-ordering is ported; the sharded executor is not ported yet.
+MTTKRP one launch over the batch's stacked plan.  ``ordering=`` selects
+the nonzero execution order (``repro_torch.reorder``); the sharded
+executor is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from repro_torch.kernels.mttkrp.ops import (
     tensor_device_operands,
 )
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref
+from repro_torch.reorder.strategies import nonzero_order_tensor
 
 __all__ = [
     "FUSED_FIT_TOL",
@@ -101,6 +103,7 @@ class FusedCPALS:
         dtype: torch.dtype = torch.float32,
         tile_nnz: int = 256,
         rows_per_block: int = 256,
+        ordering: str | None = None,
     ) -> None:
         if tensor.nnz == 0:
             raise ValueError(
@@ -119,9 +122,22 @@ class FusedCPALS:
         self._indices, self._values, self._norm2 = tensor_device_operands(
             tensor, device=self.device, dtype=compute_dtype
         )
-        if impl == "kernel":
+        self.ordering = ordering
+        if impl == "ref":
+            # Per-mode ordered COO streams when a strategy is asked for; the
+            # fit's stream for every mode otherwise.
+            shared = (self._indices, self._values)
+            self._ref_streams = [shared] * self.nmodes
+            if ordering is not None:
+                for m in range(self.nmodes):
+                    o = nonzero_order_tensor(self._indices, tensor.shape, m, ordering,
+                                             rows_per_block=rows_per_block)
+                    self._ref_streams[m] = (self._indices[o], self._values[o])
+        else:
             self._plans = [
-                get_plan(tensor, m, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
+                get_plan(tensor, m, tile_nnz=tile_nnz, rows_per_block=rows_per_block,
+                         ordering="lex" if ordering is None else ordering,
+                         device=self.device)
                 for m in range(self.nmodes)
             ]
             # Upload once; every sweep of every restart reuses the buffers.
@@ -130,7 +146,8 @@ class FusedCPALS:
 
     def _mttkrp(self, factors: Sequence[torch.Tensor], mode: int) -> torch.Tensor:
         if self.impl == "ref":
-            return mttkrp_ref((self._indices, self._values, self.tensor.shape), factors, mode)
+            indices, values = self._ref_streams[mode]
+            return mttkrp_ref((indices, values, self.tensor.shape), factors, mode)
         return mttkrp_from_plan(self._plans[mode], factors)
 
     def _sweeps(self, factors, weights, length: int):
@@ -347,10 +364,14 @@ def cp_als_fused(
     dtype: torch.dtype = torch.float32,
     tile_nnz: int = 256,
     rows_per_block: int = 256,
+    ordering: str | None = None,
     init_factors: Sequence[Sequence] | None = None,
     verbose: bool = False,
 ) -> BatchedCPState:
-    """One-shot fused CP-ALS (build the executor, run once)."""
+    """One-shot fused CP-ALS (build the executor, run once).
+
+    ``cp_als(..., fused=True)`` wraps this and returns ``.state``.
+    """
     executor = FusedCPALS(
         tensor,
         rank,
@@ -359,6 +380,7 @@ def cp_als_fused(
         dtype=dtype,
         tile_nnz=tile_nnz,
         rows_per_block=rows_per_block,
+        ordering=ordering,
     )
     return executor.run(
         n_iters=n_iters,

@@ -19,12 +19,32 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.memo import IdentityKeyedCache
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels.mttkrp.ops import mttkrp_kernel
 
 __all__ = ["IMPLS", "check_impl", "dense_mttkrp_oracle", "khatri_rao", "mttkrp", "mttkrp_ref"]
 
 IMPLS = ("ref", "kernel")
+
+# Ordered-view memo of the ref path: the strategy's sort runs once per
+# (tensor, mode, ordering), not on every CP-ALS call.
+_ORDERED_CACHE = IdentityKeyedCache()
+
+
+def _ordered_ref_view(
+    tensor: SparseTensor, mode: int, ordering: str, device: torch.device
+) -> SparseTensor:
+    from repro_torch.reorder import apply_nonzero_order, nonzero_order
+
+    view = _ORDERED_CACHE.get(tensor, (mode, ordering))
+    if view is None:
+        view = _ORDERED_CACHE.put(
+            tensor,
+            (mode, ordering),
+            apply_nonzero_order(tensor, nonzero_order(tensor, mode, ordering, device=device)),
+        )
+    return view
 
 
 def check_impl(impl: str) -> None:
@@ -92,15 +112,16 @@ def mttkrp(
     ``"kernel"`` is the counterpart of the JAX ``impl="pallas"``: the
     plan-based kernel family (``kernels.mttkrp.ops.mttkrp_kernel``), which
     takes ``tile_nnz=``, ``rows_per_block=`` and ``plan=`` through
-    ``kwargs``.  Only the ``"lex"`` ordering is ported.
+    ``kwargs``.  ``ordering`` selects the nonzero execution order
+    (``repro_torch.reorder``) for both: the ref path gathers in the
+    permuted COO order, the kernel path linearizes its plan with it.  Pure
+    execution orders only: a relabeling (``reorder_tensor``) needs factor
+    perms and stays with the caller.
     """
     check_impl(impl)
     if impl == "ref":
-        if ordering not in (None, "lex"):
-            raise NotImplementedError(
-                f"ordering={ordering!r}: only 'lex' is ported (ROADMAP Queue 1, "
-                "'reorder orderings')"
-            )
+        if ordering is not None:
+            tensor = _ordered_ref_view(tensor, mode, ordering, factors[0].device)
         return mttkrp_ref(tensor, factors, mode)
     if ordering is not None:
         kwargs["ordering"] = ordering

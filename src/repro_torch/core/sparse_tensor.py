@@ -11,6 +11,9 @@ to whole tiles of ``tile_nnz``.  All hyperedges that share an output row
 are then consecutive, which is what lets a kernel keep partial sums on
 chip and store each output row exactly once (the paper's Algorithm 1,
 line 11).  The plan is host-side numpy, built once per (tensor, mode).
+Other nonzero orderings (``repro_torch.reorder``) keep the output block
+as the primary key; ``MTTKRPPlan.rows_contiguous`` says whether the
+ordering also keeps each output row's nonzeros together.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE
 
 __all__ = [
     "SparseTensor",
@@ -123,9 +129,21 @@ class MTTKRPPlan:
     sorted_values: np.ndarray
     local_row: np.ndarray
     tile_block: np.ndarray
-    # Nonzero-ordering strategy of the linearization.  Only "lex" (stable
-    # output-mode sort, COO order within each output row) is ported.
+    # Nonzero-ordering strategy of the linearization (repro_torch.reorder).
+    # "lex" is the baseline: stable output-mode sort, COO order within
+    # each output row.
     ordering: str = "lex"
+
+    @property
+    def rows_contiguous(self) -> bool:
+        """Whether each output row's nonzeros are one contiguous run of the
+        stream: true for every ordering whose primary key is the output row
+        (``lex``, ``secondary-sort``, ``degree``), false for ``blocked``,
+        whose rows come back once per input band.  The kernel's row-run
+        mode needs it; its tile mode takes any plan."""
+        from repro_torch.reorder.strategies import ROW_CONTIGUOUS_ORDERINGS
+
+        return self.ordering in ROW_CONTIGUOUS_ORDERINGS
 
     @property
     def num_tiles(self) -> int:
@@ -148,11 +166,16 @@ def build_mttkrp_plan(
     tile_nnz: int = 256,
     rows_per_block: int = 256,
     ordering: str = "lex",
+    device: str | torch.device = DEFAULT_DEVICE,
 ) -> MTTKRPPlan:
     """Linearize nonzeros for mode-ordered execution (paper Algorithm 1).
 
     Steps:
-      1. stable sort of the hyperedges by output-mode index (``"lex"``);
+      1. order the hyperedges by the ``ordering`` strategy
+         (``repro_torch.reorder``; every strategy keeps the output block as
+         the primary key, so steps 2-4 see contiguous ascending blocks):
+         ``"lex"`` is a stable sort by output-mode index on the host, the
+         other strategies sort on ``device`` (``nonzero_order``);
       2. group by output block (``rows_per_block`` consecutive output rows);
       3. pad every block's nonzero count to a multiple of ``tile_nnz`` so no
          tile spans two output blocks (padding nonzeros carry value 0 and
@@ -162,15 +185,17 @@ def build_mttkrp_plan(
     """
     if not (0 <= mode < tensor.nmodes):
         raise ValueError(f"mode {mode} out of range for {tensor.nmodes}-mode tensor")
-    if ordering != "lex":
-        raise NotImplementedError(
-            f"ordering={ordering!r}: only 'lex' is ported; the repro.reorder "
-            "strategies are ROADMAP Queue 1, 'reorder orderings'"
-        )
     i_out = tensor.shape[mode]
     num_blocks = max(1, -(-i_out // rows_per_block))
 
-    order = np.argsort(tensor.indices[:, mode], kind="stable")
+    if ordering == "lex":
+        order = np.argsort(tensor.indices[:, mode], kind="stable")
+    else:
+        from repro_torch.reorder.strategies import nonzero_order  # circular import
+
+        order = nonzero_order(
+            tensor, mode, ordering, rows_per_block=rows_per_block, device=device
+        )
     idx = tensor.indices[order].astype(np.int32)
     val = tensor.values[order]
 

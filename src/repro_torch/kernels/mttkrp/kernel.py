@@ -7,7 +7,13 @@ plan buffers and compute the same function:
   * ``"split"`` (``csrc/mttkrp_split.cu``), every call's kernel unless the
     caller names another: a persistent grid sized from the card, each warp
     an equal slice of the nonzero stream, and a second small launch that
-    sums the rows shared between slices and stores them once;
+    sums what slices share and stores it once.  It has two modes
+    (``SPLIT_MODES``), picked from the plan buffers' ``rows_contiguous``
+    flag: ``"rows"`` sums each output row's run in registers and needs
+    each row's nonzeros to be one run of the stream (the ``lex``,
+    ``secondary-sort`` and ``degree`` orderings); ``"tiles"`` accumulates
+    each output block in a shared-memory tile per warp and takes any plan
+    (the ``blocked`` ordering's);
   * ``"block"`` (``csrc/mttkrp.cu``), asked for by name only: one CTA per
     plan output block, kept to time the two in one run.
 
@@ -17,8 +23,9 @@ fallback.  CPU tensors go to the plain version (``ref.mttkrp_plan_ref``)
 one level up, in ``ops.mttkrp_from_plan``.
 
 ``mttkrp_cuda.launches`` counts the MTTKRPs launched by this process (the
-split variant's carry pass is part of its call), and
-``mttkrp_cuda.launches_by_variant`` counts them per variant.
+split variant's carry pass is part of its call),
+``mttkrp_cuda.launches_by_variant`` counts them per variant and
+``mttkrp_cuda.launches_by_mode`` the split variant's per mode.
 """
 
 from __future__ import annotations
@@ -36,14 +43,18 @@ if TYPE_CHECKING:
 __all__ = [
     "MAX_MODES",
     "MAX_RANK_CHUNK",
+    "SPLIT_MODES",
     "VARIANTS",
     "mttkrp_cuda",
     "rank_chunk",
     "reset_launch_counts",
+    "split_mode_for",
     "split_slices",
+    "tile_grid",
 ]
 
 VARIANTS = ("split", "block")
+SPLIT_MODES = ("rows", "tiles")
 MAX_MODES = 8  # csrc/mttkrp.cu and csrc/mttkrp_split.cu: MAX_MODES
 MAX_RANK_CHUNK = 64  # rank columns per CTA of the block kernel
 SHARED_MEMORY_LIMIT = 232_448  # bytes of shared memory one H100 block may use
@@ -87,6 +98,12 @@ def _library(variant: str):
         lib.mttkrp_split_ctas.restype = ctypes.c_int
         lib.mttkrp_split_error_string.argtypes = [ctypes.c_int]
         lib.mttkrp_split_error_string.restype = ctypes.c_char_p
+        lib.mttkrp_tiles_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll,
+                                            i, i, i, i, i, i, i, i, i, i, i, p]
+        lib.mttkrp_tiles_launch.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.mttkrp_tiles_grid.argtypes = [i, i, i, ip, ip]
+        lib.mttkrp_tiles_grid.restype = ctypes.c_int
     return lib
 
 
@@ -118,6 +135,53 @@ def split_slices(nmodes: int, batch: int, dtype: torch.dtype, device: torch.devi
     return _CTAS[key] * SPLIT_WARPS_PER_CTA
 
 
+_TILE_GRID: dict[tuple, tuple[int, int]] = {}
+
+
+def tile_grid(nmodes: int, rows_per_block: int, dtype: torch.dtype,
+              device: torch.device) -> tuple[int, int]:
+    """The split kernel's tile-mode grid on ``device`` for this shape:
+    ``(ctas, warps_per_cta)``, the warps per CTA (at most 8, each with a
+    ``rows_per_block x 16`` float32 tile) that put the most warps on an SM.
+    ``ctas * warps_per_cta`` is its slice count."""
+    if not 1 <= rows_per_block * SPLIT_RANK_CHUNK * 4 <= SHARED_MEMORY_LIMIT:
+        raise ValueError(
+            f"rows_per_block={rows_per_block}: the tile mode's tile of "
+            f"{rows_per_block} x {SPLIT_RANK_CHUNK} float32 does not fit "
+            f"{SHARED_MEMORY_LIMIT} bytes of shared memory"
+        )
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, nmodes == 3, rows_per_block, dtype)
+    if key not in _TILE_GRID:
+        ctas, warps = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _library("split").mttkrp_tiles_grid(
+                nmodes, rows_per_block, _FACTOR_DTYPES[dtype], ctypes.byref(ctas),
+                ctypes.byref(warps))
+        _raise_on(err, "split")
+        _TILE_GRID[key] = (ctas.value, warps.value)
+    return _TILE_GRID[key]
+
+
+def split_mode_for(plan_bufs: "PlanBuffers", split_mode: str | None) -> str:
+    """The split kernel's mode for these plan buffers: ``split_mode`` when
+    given, else ``"rows"`` if each output row's nonzeros are contiguous and
+    ``"tiles"`` if not.  The row-run mode refuses a plan whose rows are not
+    contiguous: it would store such a row once per run."""
+    if split_mode is None:
+        return "rows" if plan_bufs.rows_contiguous else "tiles"
+    if split_mode not in SPLIT_MODES:
+        raise ValueError(f"unknown split mode {split_mode!r}; the modes are {SPLIT_MODES}")
+    if split_mode == "rows" and not plan_bufs.rows_contiguous:
+        raise ValueError(
+            "the split kernel's row-run mode needs each output row's nonzeros "
+            "to be contiguous, and this plan's are not (the 'blocked' ordering); "
+            "its tile mode takes it (split_mode='tiles' or None)"
+        )
+    return split_mode
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -136,19 +200,26 @@ def mttkrp_cuda(
     i_out: int,
     *,
     variant: str | None = None,
+    split_mode: str | None = None,
 ) -> torch.Tensor:
     """Launch an MTTKRP kernel; returns ``(..., i_out, R)`` float32.
 
     ``factors`` are all ``(I_k, R)`` or all ``(B, I_k, R)`` (one call
     covers the restart batch), float32 or bfloat16, contiguous, on the
     plan buffers' CUDA device.  ``variant`` is ``"split"`` (the default)
-    or ``"block"``.  The kernel runs on the current stream and is not
-    synchronised.
+    or ``"block"``; ``split_mode`` the split variant's mode, by default the
+    one the plan buffers' ``rows_contiguous`` flag picks
+    (``split_mode_for``).  The kernel runs on the current stream and is
+    not synchronised.
     """
     variant = "split" if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; the kernels are {VARIANTS}")
     bufs = plan_bufs
+    if variant == "split":
+        split_mode = split_mode_for(bufs, split_mode)
+    elif split_mode is not None:
+        raise ValueError("split_mode is an option of the split variant")
     device = bufs.values.device
     if device.type != "cuda":
         raise ValueError(
@@ -196,6 +267,8 @@ def mttkrp_cuda(
     if variant == "block":
         chunk = rank_chunk(rank, rows_per_block)
         passes = (batch, -(-rank // chunk))
+    elif split_mode == "tiles":
+        passes = (batch, -(-rank // SPLIT_RANK_CHUNK))
     else:
         passes = (-(-batch // SPLIT_BATCH_CHUNK), -(-rank // SPLIT_RANK_CHUNK))
     if max(passes) > MAX_GRID_YZ:
@@ -226,6 +299,39 @@ def mttkrp_cuda(
                 i_out,
                 batch,
                 _FACTOR_DTYPES[dtype],
+                stream,
+            )
+        elif split_mode == "tiles":
+            ctas, warps = tile_grid(nmodes, rows_per_block, dtype, device)
+            slices = ctas * warps
+            # Carries: the tiles of each slice's first and last block.
+            carry_val = torch.empty((slices, 2, batch, rows_per_block, rank),
+                                    dtype=torch.float32, device=device)
+            carry_blk = torch.empty((slices, 2), dtype=torch.int32, device=device)
+            align = 16 if dtype == torch.float32 else 8
+            vec = rank % 4 == 0 and all(f.data_ptr() % align == 0 for f in factors)
+            err = _library("split").mttkrp_tiles_launch(
+                bufs.indices.data_ptr(),
+                bufs.values.data_ptr(),
+                bufs.block_nnz_start.data_ptr(),
+                bufs.block_real_end.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p),
+                ctypes.cast(batch_strides, ctypes.c_void_p),
+                out.data_ptr(),
+                carry_val.data_ptr(),
+                carry_blk.data_ptr(),
+                nnz_pad,
+                num_blocks,
+                nmodes,
+                mode,
+                rank,
+                batch,
+                i_out,
+                rows_per_block,
+                ctas,
+                warps,
+                _FACTOR_DTYPES[dtype],
+                int(vec),
                 stream,
             )
         else:
@@ -260,13 +366,16 @@ def mttkrp_cuda(
     _raise_on(err, variant)
     mttkrp_cuda.launches += 1
     mttkrp_cuda.launches_by_variant[variant] += 1
+    if variant == "split":
+        mttkrp_cuda.launches_by_mode[split_mode] += 1
     return out
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count and every per-variant count to 0."""
+    """Set the launch count and every per-variant and per-mode count to 0."""
     mttkrp_cuda.launches = 0
     mttkrp_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+    mttkrp_cuda.launches_by_mode = dict.fromkeys(SPLIT_MODES, 0)
 
 
 reset_launch_counts()

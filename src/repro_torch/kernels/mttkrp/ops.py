@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.memo import IdentityKeyedCache
 from repro_torch.core.sparse_tensor import MTTKRPPlan, SparseTensor, build_mttkrp_plan
-from repro_torch.device import resolve_device
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.mttkrp.kernel import mttkrp_cuda
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref
 
@@ -74,6 +74,9 @@ class PlanBuffers(NamedTuple):
     block_real_end: torch.Tensor  # (num_blocks,) int64 end of each block's real nonzeros
     rows_per_block: int
     index_bound: tuple[int, ...]  # per mode, above every index (checked on the host)
+    # Each output row's nonzeros are one run of the stream (MTTKRPPlan.rows_contiguous):
+    # the split kernel's row-run mode needs it, its tile mode does not.
+    rows_contiguous: bool
 
 
 class TensorOperands(NamedTuple):
@@ -136,6 +139,7 @@ def _upload(plan: MTTKRPPlan, dev: torch.device) -> PlanBuffers:
         block_real_end=torch.as_tensor(block_real_end(plan), device=dev),
         rows_per_block=int(plan.rows_per_block),
         index_bound=bound,
+        rows_contiguous=plan.rows_contiguous,
     )
 
 
@@ -285,6 +289,7 @@ def stacked_plan_buffers(
         block_real_end=start[:-1] + count,
         rows_per_block=rpb,
         index_bound=tuple(batch * d for d in dims),
+        rows_contiguous=True,  # the stream is sorted by (block-diagonal) output row
     )
 
 
@@ -337,8 +342,10 @@ def get_plan(
     tile_nnz: int = 256,
     rows_per_block: int = 256,
     ordering: str = "lex",
+    device: str | torch.device = DEFAULT_DEVICE,
 ) -> MTTKRPPlan:
-    """The (memoized) plan of ``tensor`` for output mode ``mode``."""
+    """The (memoized) plan of ``tensor`` for output mode ``mode``; an
+    ordering other than ``"lex"`` is sorted on ``device``."""
     key = (mode, tile_nnz, rows_per_block, ordering)
     plan = _PLAN_CACHE.get(tensor, key)
     if plan is None:
@@ -351,6 +358,7 @@ def get_plan(
                 tile_nnz=tile_nnz,
                 rows_per_block=rows_per_block,
                 ordering=ordering,
+                device=device,
             ),
         )
     return plan
@@ -386,7 +394,8 @@ def mttkrp_kernel(
 
     The counterpart of ``repro.kernels.mttkrp.ops.mttkrp_pallas``.  The
     plan geometry (``tile_nnz``, ``rows_per_block``, ``ordering``) only
-    matters when ``plan`` is not given.
+    matters when ``plan`` is not given; an ordered plan is sorted on the
+    factors' device.
     """
     if plan is None:
         plan = get_plan(
@@ -395,5 +404,6 @@ def mttkrp_kernel(
             tile_nnz=tile_nnz,
             rows_per_block=rows_per_block,
             ordering=ordering,
+            device=factors[0].device,
         )
     return mttkrp_from_plan(plan, factors)

@@ -1,18 +1,23 @@
 """The split MTTKRP kernel's partition of the nonzero stream, in plain PyTorch.
 
 ``csrc/mttkrp_split.cu`` gives each warp of its grid an equal slice of the
-plan's padded nonzero stream (``slice_bounds``).  A warp stores the rows
-whose run starts and ends inside its slice, zero-fills the empty rows
-between two of its runs, and leaves its first and last run as carries; a
-second launch sums the carries of each shared row in slice order, stores
-it once and zero-fills the empty rows between slices.
+plan's padded nonzero stream (``slice_bounds``).  In its row-run mode a
+warp stores the rows whose run starts and ends inside its slice,
+zero-fills the empty rows between two of its runs, and leaves its first
+and last run as carries; a second launch sums the carries of each shared
+row in slice order, stores it once and zero-fills the empty rows between
+slices.  In its tile mode a warp accumulates each output block it touches
+in a tile, stores the tiles of the blocks that start and end inside its
+slice, and leaves the tiles of its first and last block as carries; a
+second launch sums each shared block's carry tiles in slice order and
+stores the block once.
 
-``emulate_split`` replays those two launches run by run on the CPU, with
-a count of the stores each output row receives, so that a test can show
-that every row is stored exactly once and that the result is the MTTKRP.
-It sums each run in another order than the kernel and is used by tests
-only; the kernel's arithmetic is held against ``ref.mttkrp_plan_ref`` on
-the card.
+``emulate_split`` (row-run mode) and ``emulate_tiles`` (tile mode) replay
+those launches on the CPU, with a count of the stores each output row
+receives, so that a test can show that every row is stored exactly once
+and that the result is the MTTKRP.  They sum in another order than the
+kernel and are used by tests only; the kernel's arithmetic is held
+against ``ref.mttkrp_plan_ref`` on the card.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 if TYPE_CHECKING:
     from repro_torch.kernels.mttkrp.ops import PlanBuffers
 
-__all__ = ["emulate_split", "real_mask", "slice_bounds"]
+__all__ = ["emulate_split", "emulate_tiles", "real_mask", "slice_bounds"]
 
 
 def slice_bounds(nnz_pad: int, slices: int) -> np.ndarray:
@@ -41,6 +46,18 @@ def real_mask(plan_bufs: "PlanBuffers") -> torch.Tensor:
     pos = torch.arange(int(plan_bufs.values.shape[0]), dtype=torch.int64)
     blk = torch.searchsorted(start, pos, right=True) - 1
     return pos < plan_bufs.block_real_end[blk]
+
+
+def _products(plan_bufs: "PlanBuffers", factors: Sequence[torch.Tensor], mode: int):
+    """Every stream entry's product, ``(..., nnz_pad, R)`` float32."""
+    indices, values = plan_bufs.indices, plan_bufs.values
+    lead = tuple(factors[0].shape[:-2])
+    rank = int(factors[0].shape[-1])
+    prod = values.to(torch.float32)[:, None].expand(lead + (values.shape[0], rank))
+    for k, f in enumerate(factors):
+        if k != mode:
+            prod = prod * f.index_select(-2, indices[:, k]).to(torch.float32)
+    return prod
 
 
 def emulate_split(
@@ -60,10 +77,7 @@ def emulate_split(
     lead = tuple(factors[0].shape[:-2])
     rank = int(factors[0].shape[-1])
     real = real_mask(plan_bufs)
-    prod = values.to(torch.float32)[:, None].expand(lead + (values.shape[0], rank))
-    for k, f in enumerate(factors):
-        if k != mode:
-            prod = prod * f.index_select(-2, indices[:, k]).to(torch.float32)
+    prod = _products(plan_bufs, factors, mode)
 
     out = torch.full(lead + (i_out, rank), float("nan"))
     stores = torch.zeros(i_out, dtype=torch.int64)
@@ -128,3 +142,68 @@ def emulate_split(
     if prev + 1 < i_out:
         store(slice(prev + 1, i_out), 0.0)
     return out, stores, carry_row
+
+
+def emulate_tiles(
+    plan_bufs: "PlanBuffers",
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    i_out: int,
+    slices: int,
+) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Both launches of the split kernel's tile mode over ``slices`` slices.
+
+    Returns ``(out, stores, carry_blocks)``: the ``(..., i_out, R)`` float32
+    output (rows never stored stay NaN), the number of stores each output
+    row received, and the ``(slices, 2)`` blocks of each slice's carry
+    tiles (-1: none).
+    """
+    indices = plan_bufs.indices
+    lead = tuple(factors[0].shape[:-2])
+    rank = int(factors[0].shape[-1])
+    rpb = int(plan_bufs.rows_per_block)
+    real = real_mask(plan_bufs)
+    prod = _products(plan_bufs, factors, mode)
+    starts = plan_bufs.block_nnz_start.numpy()
+    num_blocks = starts.shape[0] - 1
+
+    out = torch.full(lead + (i_out, rank), float("nan"))
+    stores = torch.zeros(i_out, dtype=torch.int64)
+
+    def store(block: int, tile: torch.Tensor) -> None:
+        rows = slice(block * rpb, min((block + 1) * rpb, i_out))
+        out[..., rows, :] = tile[..., : max(rows.stop - rows.start, 0), :]
+        stores[rows] += 1
+
+    # Launch 1: each slice's tiles, stored whole or left as carries.
+    bounds = slice_bounds(int(plan_bufs.values.shape[0]), slices)
+    carry_blk = np.full((slices, 2), -1, dtype=np.int64)
+    carry_val: dict[tuple[int, int], torch.Tensor] = {}
+    for w in range(slices):
+        lo, hi = int(bounds[w]), int(bounds[w + 1])
+        if lo == hi:
+            continue
+        first = int(np.searchsorted(starts, lo, side="right")) - 1
+        last = int(np.searchsorted(starts, hi - 1, side="right")) - 1
+        for b in range(first, last + 1):
+            a, z = max(lo, int(starts[b])), min(hi, int(starts[b + 1]))
+            keep = real[a:z]
+            local = indices[a:z, mode][keep] - b * rpb
+            tile = torch.zeros(lead + (rpb, rank)).index_add_(
+                -2, local, prod[..., a:z, :][..., keep, :])
+            if starts[b] >= lo and starts[b + 1] <= hi:
+                store(b, tile)
+            else:
+                slot = 0 if b == first else 1
+                carry_blk[w, slot] = b
+                carry_val[w, slot] = tile
+
+    # Launch 2: each shared block's carry tiles, summed in slice order.
+    for b in range(num_blocks):
+        holders = [(w, s) for w in range(slices) for s in (0, 1) if carry_blk[w, s] == b]
+        if holders:
+            total = carry_val[holders[0]].clone()
+            for h in holders[1:]:
+                total += carry_val[h]
+            store(b, total)
+    return out, stores, carry_blk

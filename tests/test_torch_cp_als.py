@@ -13,10 +13,12 @@ import torch
 
 from repro.core import cp_als as jcp
 from repro.core import cp_als_fused as jfused
+from repro.core import mttkrp as jmttkrp
 from repro.core import sparse_tensor as jst
 from repro_torch.convert import cpstate_to_numpy, factors_from_numpy
 from repro_torch.core import cp_als as tcp
 from repro_torch.core import cp_als_fused as tfused
+from repro_torch.core import mttkrp as tmttkrp
 from repro_torch.core import sparse_tensor as tst
 
 FACTOR_TOL = 1e-3
@@ -181,3 +183,56 @@ def test_argument_errors():
     init = [np.ones((s, 2), np.float32) for s in t.shape]
     with pytest.raises(ValueError, match="init_factors"):
         ex.run(init_factors=[init, init], restarts=3)
+
+
+def test_cp_als_rejects_bad_args_as_jax_does():
+    """The checks of ``repro.core.cp_als.cp_als`` (tests/test_cp_als.py)."""
+    t, tj = _pair((10, 8, 6), 50, seed=0)
+    with pytest.raises(ValueError, match="restarts"):
+        tcp.cp_als(t, rank=2, restarts=4, device="cpu")
+    with pytest.raises(ValueError, match="restarts"):
+        jcp.cp_als(tj, rank=2, restarts=4)
+    with pytest.raises(ValueError, match="fit_every"):
+        tcp.cp_als(t, rank=2, fit_every=3, device="cpu")
+    with pytest.raises(ValueError, match="mttkrp_fn"):
+        tcp.cp_als(t, rank=2, fused=True, mttkrp_fn=lambda t, f, m: None, device="cpu")
+    with pytest.raises(ValueError, match="init_factors"):
+        init = [np.ones((s, 2), np.float32) for s in t.shape]
+        tcp.cp_als(t, rank=2, fused=True, restarts=3, init_factors=[init, init], device="cpu")
+
+
+@pytest.mark.parametrize("impl,jax_kw", [("kernel", dict(impl="pallas", backend="xla")),
+                                         ("ref", dict(impl="ref"))])
+def test_cp_als_fused_restarts_match_jax(impl, jax_kw):
+    """``cp_als(fused=True, restarts=3)``: the best restart's state, against
+    JAX's from the same initial factors."""
+    t, tj = _pair((28, 22, 18), 900, seed=6, zipf_a=0.7)
+    sj = jcp.cp_als(tj, 5, n_iters=6, tol=0.0, seed=3, fused=True, restarts=3, fit_every=2,
+                    **jax_kw)
+    inits = [_jax_init(tj, 5, seed=s) for s in (3, 4, 5)]
+    sp = tcp.cp_als(t, 5, n_iters=6, tol=0.0, fused=True, restarts=3, fit_every=2, impl=impl,
+                    device="cpu", init_factors=inits)
+    assert isinstance(sp, tcp.CPState) and sp.iters == sj.iters == 6
+    _assert_state_close(sp, sj)
+    one = tcp.cp_als(t, 5, n_iters=6, tol=0.0, fused=True, impl=impl, device="cpu",
+                     init_factors=inits[0])
+    np.testing.assert_allclose(
+        one.fits, jfused.cp_als_fused(tj, 5, n_iters=6, tol=0.0, seed=3, **jax_kw).state.fits,
+        atol=tfused.FUSED_FIT_TOL, rtol=0)
+
+
+def test_cp_als_mttkrp_fn_replaces_the_impl_as_in_jax():
+    """``mttkrp_fn`` drives the eager loop; both sides inject their own ref."""
+    t, tj = _pair((30, 25, 20), 1200, seed=5, zipf_a=0.8, shuffle=True)
+    calls = []
+
+    def port_fn(tensor, factors, mode):
+        calls.append(mode)
+        return tmttkrp.mttkrp(tensor, factors, mode, impl="kernel")
+
+    sj = jcp.cp_als(tj, 6, n_iters=4, tol=0.0, seed=2,
+                    mttkrp_fn=lambda tensor, f, m: jmttkrp.mttkrp_ref(tensor, f, m))
+    sp = tcp.cp_als(t, 6, n_iters=4, tol=0.0, device="cpu", mttkrp_fn=port_fn,
+                    init_factors=_jax_init(tj, 6, seed=2))
+    assert calls == [0, 1, 2] * 4
+    _assert_state_close(sp, sj)

@@ -214,3 +214,100 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tkernel.mttkrp_cuda(bufs, [facs[0], facs[1][:5].contiguous(), facs[2]], 0, 30)
     with pytest.raises(ValueError, match="variant"):
         tkernel.mttkrp_cuda(bufs, facs, 0, 30, variant="atomic")
+
+
+# -- the orderings, and the split kernel's tile mode --------------------------
+
+ORDERINGS = ("lex", "secondary-sort", "degree", "blocked")
+
+
+def _ordered_check(t, rank, device, ordering, *, tile_nnz, rows_per_block, batch, dtype,
+                   split_mode=None):
+    """Each mode's plan in ``ordering`` through the split kernel (in the mode
+    the plan picks, or ``split_mode``) against the plain version, and a
+    bit-for-bit repeat; returns the modes the launches took."""
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    facs = _factors(t.shape, rank, device, batch=batch, dtype=dtype, seed=t.nnz)
+    taken = []
+    for mode in range(t.nmodes):
+        plan = build_mttkrp_plan(t, mode, tile_nnz=tile_nnz, rows_per_block=rows_per_block,
+                                 ordering=ordering, device=device)
+        bufs = tops.plan_device_buffers(plan, device)
+        before = dict(tkernel.mttkrp_cuda.launches_by_mode)
+        got = tkernel.mttkrp_cuda(bufs, facs, mode, t.shape[mode], split_mode=split_mode)
+        again = tkernel.mttkrp_cuda(bufs, facs, mode, t.shape[mode], split_mode=split_mode)
+        torch.cuda.synchronize()
+        after = tkernel.mttkrp_cuda.launches_by_mode
+        taken += [m for m in after if after[m] == before[m] + 2]
+        assert _terms_compare(bufs, facs, mode, t.shape[mode], got, tol), (ordering, mode)
+        assert torch.equal(got, again), f"{ordering} mode {mode}: two launches differ"
+    return taken
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [None, 4], ids=["B1", "B4"])
+@pytest.mark.parametrize("ordering", ORDERINGS)
+def test_every_ordering_through_the_split_kernel(cuda, ordering, batch, dtype):
+    t = random_sparse_tensor((600, 500, 700), 60_000, seed=1, zipf_a=0.8)
+    taken = _ordered_check(t, 16, cuda, ordering, tile_nnz=32, rows_per_block=64, batch=batch,
+                           dtype=dtype)
+    assert taken == ["tiles" if ordering == "blocked" else "rows"] * 3
+    # The tile mode takes every plan; the contiguous ones too.
+    if ordering != "blocked":
+        assert _ordered_check(t, 16, cuda, ordering, tile_nnz=32, rows_per_block=64,
+                              batch=batch, dtype=dtype, split_mode="tiles") == ["tiles"] * 3
+
+
+def _tile_edges(rng):
+    """Block 0 shared by many slices, empty blocks, a block of mostly
+    padding (tests/test_torch_reorder.py's partition edges, scaled up)."""
+    rows = np.concatenate([rng.integers(0, 16, 300_000), rng.integers(64, 80, 400),
+                           rng.integers(160, 176, 5)])
+    idx = np.stack([rows, rng.integers(0, 300, rows.size), rng.integers(0, 200, rows.size)], 1)
+    return SparseTensor(idx.astype(np.int32), rng.standard_normal(rows.size).astype(np.float32),
+                        (200, 300, 200))
+
+
+# name -> (tensor maker, rank, tile_nnz, rows_per_block)
+TILE_CASES = {
+    "block shared by many slices, empty blocks": (_tile_edges, 16, 8, 16),
+    "slice boundary in padding": (_padding_heavy, 16, 256, 16),
+    "hot row": (_hot_row, 16, 256, 256),
+    "fewer nonzeros than slices": (_few, 16, 32, 16),
+    "rank 13": (_moderate, 13, 128, 32),
+    "rank 40": (_moderate, 40, 64, 512),
+    "4 modes": (lambda rng: random_sparse_tensor((60, 50, 40, 30), 20_000, seed=4, zipf_a=0.7),
+                16, 128, 32),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [None, 4], ids=["B1", "B4"])
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_tile_mode_partition_edges(cuda, name, batch, dtype):
+    make, rank, tile_nnz, rows_per_block = TILE_CASES[name]
+    t = make(np.random.default_rng(8))
+    if name.startswith("block shared"):  # the premise, on mode 0's blocked plan
+        plan = build_mttkrp_plan(t, 0, tile_nnz=tile_nnz, rows_per_block=rows_per_block,
+                                 ordering="blocked", device=cuda)
+        ctas, warps = tkernel.tile_grid(t.nmodes, rows_per_block, dtype, cuda)
+        start = tops.block_nnz_start(plan)
+        bounds = slice_bounds(plan.nnz_pad, ctas * warps)
+        blk = np.searchsorted(start, bounds[:-1], side="right") - 1
+        assert np.bincount(blk).max() > 2
+        assert (tops.block_real_end(plan) == start[:-1]).any()
+    taken = _ordered_check(t, rank, cuda, "blocked", tile_nnz=tile_nnz,
+                           rows_per_block=rows_per_block, batch=batch, dtype=dtype)
+    assert set(taken) == {"tiles"}
+
+
+def test_row_run_mode_refuses_a_blocked_plan_on_the_card(cuda):
+    t = random_sparse_tensor((600, 500, 700), 40_000, seed=1, zipf_a=0.8)
+    plan = build_mttkrp_plan(t, 0, tile_nnz=32, rows_per_block=64, ordering="blocked",
+                             device=cuda)
+    bufs = tops.plan_device_buffers(plan, cuda)
+    facs = _factors(t.shape, 16, cuda)
+    with pytest.raises(ValueError, match="row-run mode"):
+        tkernel.mttkrp_cuda(bufs, facs, 0, 600, split_mode="rows")
+    with pytest.raises(ValueError, match="shared memory"):
+        tkernel.tile_grid(3, 4096, torch.float32, cuda)

@@ -278,10 +278,11 @@ def test_mttkrp_dispatch_errors():
         tm.mttkrp(t, tf, 0, impl="sharded")
     with pytest.raises(ValueError, match="unknown impl"):
         tm.mttkrp(t, tf, 0, impl="pallas")
-    with pytest.raises(NotImplementedError, match="lex"):
-        tm.mttkrp(t, tf, 0, impl="ref", ordering="degree")
-    with pytest.raises(NotImplementedError, match="lex"):
-        tm.mttkrp(t, tf, 0, impl="kernel", ordering="degree")
+    # Every ordering is ported; an unknown one raises on both paths.
+    with pytest.raises(ValueError, match="unknown ordering"):
+        tm.mttkrp(t, tf, 0, impl="ref", ordering="random")
+    with pytest.raises(ValueError, match="unknown ordering"):
+        tm.mttkrp(t, tf, 0, impl="kernel", ordering="random")
 
 
 def test_clear_caches_releases_memoized_plans_and_buffers():

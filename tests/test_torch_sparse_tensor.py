@@ -100,9 +100,16 @@ def test_hypergraph_stats_and_helpers_equal():
 
 
 def test_non_lex_ordering_is_not_ported():
+    """The orderings are ported now (tests/test_torch_reorder.py holds every
+    one against JAX): a non-lex plan equals JAX's, and an unknown ordering
+    raises as JAX's does."""
     t = tst.random_sparse_tensor((10, 10, 10), 50, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.build_mttkrp_plan(t, 0, ordering="degree")
+    tj = jst.random_sparse_tensor((10, 10, 10), 50, seed=0)
+    got = tst.build_mttkrp_plan(t, 0, ordering="degree", device="cpu")
+    want = jst.build_mttkrp_plan(tj, 0, ordering="degree")
+    np.testing.assert_array_equal(got.sorted_indices, want.sorted_indices)
+    with pytest.raises(ValueError, match="unknown ordering"):
+        tst.build_mttkrp_plan(t, 0, ordering="random", device="cpu")
 
 
 def test_frostt_catalog_and_stand_ins_equal():
