@@ -86,11 +86,34 @@ Phases, each of which fails the run (exit code 1, no result line):
      blocked plans, a ``torch.profiler`` trace of one sweep splits the tile
      mode's time between its main launch and its carry pass.  Blocked runs
      second, after lex; each ordering's plans are freed before the next.
+ 11. the paper's experiment engine (``repro_torch.experiments``) through
+     the split kernel: ``run_experiments`` with ``impls=("kernel",)``, 3
+     sweeps eager and fused (cold and warm), on the largest stand-ins that
+     ``make_frostt_like``'s cap of 2M nonzeros gives (NELL-2 at 0.026,
+     LBNL at its Table II size with 5 modes, PATENTS at 5.6e-4), one call
+     per tensor; per run the split launches (the counter's step across its
+     call: eager plus both fused runs, 0 block), each mode's
+     first call against the plain version (1e-4 of the sum of absolute
+     terms), eager against fused fits (FUSED_FIT_TOL), the closed-form
+     flops; per mode the steady per-call ms (synchronized on both sides),
+     its CUDA-event ms and the byte bound (the tensor's nonzeros, not the
+     plan's padding); the host seconds of the trace
+     simulation and of the pricing; the priced and Che-modeled E-SRAM to
+     O-SRAM speedups and energy savings, and the trace-vs-Che hit-rate gaps
+     (printed, not asserted); NELL-2's hit rates again from the plans'
+     ``executed_row_trace`` (must be equal) and a ``ref`` run on NELL-2 (its
+     fit within FUSED_FIT_TOL of the kernel's); then the controller's gates
+     as ``scripts/run_controller.py`` runs them (``reconcile_controller``
+     and ``controller_gates``: reconciliation within
+     CONTROLLER_RECON_TOL, the paper's bands, fewer bank conflicts under
+     degree and blocked, sorted on the card) and the ordering benchmark
+     (``run_reorder_sweep(quick=True)``, its acceptance).
 
 The last three lines are the card's ``name, power.limit``, a JSON object
 with the main paths' kernels' numbers (the split MTTKRP kernel's row-run
 mode with the block kernel's time as ``previous_ms``, its launches over
-the CP-ALS paths of phases 3, 9 and 10 and its per-ordering times; its
+the CP-ALS paths of phases 3, 9, 10 and 11, its per-ordering times and
+phase 11's per-tensor times; its
 tile mode, on the blocked plans of phase 10; and the wgmma flash kernel
 with the ``mma.sync`` kernel's), and
 ``{"ok": true, "device": {...}}``.  The
@@ -122,6 +145,21 @@ from repro_torch.core import cp_als_fused as tfused  # noqa: E402
 from repro_torch.core import sparse_tensor as tst  # noqa: E402
 from repro_torch.data.synthetic_tensors import make_frostt_like  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.core.cache_sim import simulate_trace  # noqa: E402
+from repro_torch.core.hierarchy import CacheGeometry  # noqa: E402
+from repro_torch.dse.evaluator import geometry_sim_config  # noqa: E402
+from repro_torch.experiments import (  # noqa: E402
+    CHE_VS_TRACE_TOL,
+    CONTROLLER_RECON_TOL,
+    ExperimentResult,
+    ExperimentSpec,
+    controller_gates,
+    reconcile_controller,
+    run_experiments,
+)
+from repro_torch.experiments.reconcile import ENERGY_BAND, SPEEDUP_BAND  # noqa: E402
+from repro_torch.experiments import measure as texp_measure  # noqa: E402
+from repro_torch.reorder.bench import run_reorder_sweep  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import kernel as kmod  # noqa: E402
 from repro_torch.kernels.mttkrp import ops  # noqa: E402
@@ -384,21 +422,19 @@ def profile_sweep(tensor, dev, sweep_ms: float) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4} {e.key[:90]}")
 
 
-def mttkrp_bytes(plan, rank: int) -> int:
+def mttkrp_bytes(plan, rank: int, nnz: int) -> int:
     """Each input the function needs read once, each output written once
-    (factor values in float32).  Per nonzero it needs N-1 gather indices, one
-    output-row index and the value: the plan stores the row twice (as
-    ``local_row`` and as the output mode's column of the indices), and the
-    second copy is not counted."""
-    n = len(plan.shape)
-    stream = plan.nnz_pad * (4 * (n - 1) + 4 + 4) + (plan.num_blocks + 1) * 8
-    factors = sum(plan.shape[k] * rank * 4 for k in range(n) if k != plan.mode)
-    return stream + factors + plan.shape[plan.mode] * rank * 4
+    (``repro_torch.experiments.measure.mttkrp_bytes`` over the tensor's
+    ``nnz`` nonzeros and the plan's block offsets).  The plan's padding is
+    not counted: the function does not need it, and the split kernel skips
+    it by position."""
+    return texp_measure.mttkrp_bytes(plan.shape, plan.mode, rank, stream_nnz=nnz,
+                                     offsets=plan.num_blocks + 1)
 
 
-def mttkrp_flops(plan, rank: int) -> int:
+def mttkrp_flops(plan, rank: int, nnz: int) -> int:
     """N-1 factor multiplies, one value multiply and one add per (nonzero, rank)."""
-    return plan.nnz_pad * rank * (len(plan.shape) + 1)
+    return nnz * rank * (len(plan.shape) + 1)
 
 
 def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray]:
@@ -505,7 +541,7 @@ def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray]:
         block_b = median_ms(
             lambda: kmod.mttkrp_cuda(bufs, batched, p.mode, i_out, variant="block"), TIMING_REPS)
         plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, p.mode, i_out), TIMING_REPS, 1)
-        nbytes, flops = mttkrp_bytes(p, RANK), mttkrp_flops(p, RANK)
+        nbytes, flops = mttkrp_bytes(p, RANK, tensor.nnz), mttkrp_flops(p, RANK, tensor.nnz)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
         rows.append(dict(mode=p.mode, ms=ms, ms_b4=ms_b, block_ms=block, block_ms_b4=block_b,
                          plain_ms=plain, bound_ms=bound, bytes=nbytes, flops=flops,
@@ -659,7 +695,7 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
             block = median_ms(lambda: kmod.mttkrp_cuda(bufs, facs, p.mode, i_out, variant="block"),
                               TIMING_REPS)
             plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, p.mode, i_out), TIMING_REPS, 1)
-            nbytes, flops = mttkrp_bytes(p, RANK), mttkrp_flops(p, RANK)
+            nbytes, flops = mttkrp_bytes(p, RANK, tensor.nnz), mttkrp_flops(p, RANK, tensor.nnz)
             bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
             rows.append(dict(mode=p.mode, split_mode=mode_name, ms=ms, ms_b4=ms_b, tiles_ms=tiles,
                              block_ms=block, plain_ms=plain, bound_ms=bound,
@@ -1309,6 +1345,200 @@ def service_phase(dev, card: str) -> dict:
                 stacked_max_abs=max(r["max_abs"] for r in rows))
 
 
+# Phase 11: the paper's experiment engine at the largest stand-ins that
+# make_frostt_like's cap of 2M nonzeros gives: NELL-2 (3585, 2725, 8532),
+# LBNL at its full Table II size with 5 modes, PATENTS (4, 19716, 19716).
+ENGINE_TENSORS = (("NELL-2", 0.026), ("LBNL", 1.0), ("PATENTS", 5.6e-4))
+ENGINE_ITERS = 3
+BACK_TO_BACK = 50  # launches between two CUDA events, for the kernel's own time
+
+
+def back_to_back_ms(fn, n: int = BACK_TO_BACK) -> float:
+    """Device ms per call of ``n`` calls queued back to back between two
+    CUDA events: the host gaps between launches hide behind the queue
+    whenever a call takes the device longer than the host takes to enqueue
+    the next one."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def engine_phase(dev, card: str) -> dict:
+    """Phase 11: ``run_experiments`` through the split kernel on the engine's
+    stand-ins, then the controller's gates and the ordering benchmark."""
+    phase(f"phase 11: the experiment engine, {ENGINE_TENSORS}, rank {RANK}, "
+          f"{ENGINE_ITERS} sweeps eager and fused (cold, warm), impl kernel")
+    held = []  # (dims, mode, max_abs, max_rel, ok): each mode's first call vs plain
+    tensors = {}  # dims -> the engine's tensor, from its first call
+
+    def hold(tensor, impl, mode, facs, out):
+        if impl != "kernel":
+            return
+        tensors[tensor.shape] = tensor
+        bufs = ops.plan_device_buffers(ops.get_plan(tensor, mode), dev)  # the run's plan
+        max_abs, max_rel, ok = compare(bufs, list(facs), mode, tensor.shape[mode], out, F32_TOL)
+        held.append((tensor.shape, mode, max_abs, max_rel, ok))
+
+    # One run_experiments per tensor, so each run's launches are the counter's
+    # step across it; the runs together are the spec's result (run_experiments
+    # prices each tensor on its own).
+    spec = ExperimentSpec(tensors=ENGINE_TENSORS, impls=("kernel",), n_iters=ENGINE_ITERS,
+                          fused=True, device="cuda")
+    runs, per_run = [], []
+    kmod.reset_launch_counts()  # the main path of phase 11 starts here
+    t0 = time.perf_counter()
+    for one in ENGINE_TENSORS:
+        before = kmod.mttkrp_cuda.launches
+        runs += run_experiments(dataclasses.replace(spec, tensors=(one,)),
+                                first_call_hook=hold).runs
+        per_run.append(kmod.mttkrp_cuda.launches - before)
+    engine_s = time.perf_counter() - t0
+    launches = kmod.mttkrp_cuda.launches  # the main path ends here
+    by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    by_mode = dict(kmod.mttkrp_cuda.launches_by_mode)
+    result = ExperimentResult(spec=spec, runs=runs)
+    print(f"  engine: {engine_s:.1f} s host wall for {len(result.runs)} runs; split launches "
+          f"{launches} by variant {by_variant} by mode {by_mode}  [{card}]")
+    check(by_variant.get("block", 0) == 0 and by_variant["split"] == launches,
+          f"the engine's MTTKRPs did not all take the split kernel: {by_variant}")
+    check(len(per_run) == len(result.runs), f"{len(result.runs)} runs for {len(per_run)} tensors")
+    kernel_ms = {}  # shape -> per mode, the split kernel alone on the run's plans
+    for tensor in tensors.values():
+        facs = factors_on(tensor.shape, RANK, dev)  # random factors, for the time only
+        kernel_ms[tensor.shape] = [
+            back_to_back_ms(lambda b=ops.plan_device_buffers(ops.get_plan(tensor, m), dev), m=m:
+                            kmod.mttkrp_cuda(b, facs, m, tensor.shape[m]))
+            for m in range(tensor.nmodes)]
+        del facs
+    fit_tol = tfused.FUSED_FIT_TOL
+    entries = {}
+    for run, n_launches in zip(result.runs, per_run):
+        m = run.measured
+        expected = 3 * ENGINE_ITERS * len(run.dims)  # eager, fused cold, fused warm
+        print(f"  {run.key}: dims {run.dims}, nnz {run.nnz}; split launches {n_launches} "
+              f"(expected {expected}: {ENGINE_ITERS} sweeps x {len(run.dims)} modes, eager and "
+              f"fused cold and warm); fit eager {m.fit:.6f} fused {m.fused_fit:.6f}, max fit gap "
+              f"{m.fused_max_fit_delta:.3e} (tol {fit_tol}); wall eager {m.wall_s:.3f} s, fused cold "
+              f"{m.fused_wall_s:.3f} s, warm {m.fused_warm_wall_s:.3f} s")
+        check(n_launches == expected, f"{run.key} launched the split kernel {n_launches} times")
+        check(m.fused_max_fit_delta <= fit_tol and abs(m.fused_fit - m.fit) <= fit_tol,
+              f"{run.key}: fused fits differ from eager by {m.fused_max_fit_delta}")
+        check(np.isfinite([m.fit, m.fused_fit]).all(), f"{run.key}: non-finite fit")
+        rows = []
+        for mm in m.modes:
+            plan = ops.get_plan(tensors[run.dims], mm.mode)
+            nbytes = mttkrp_bytes(plan, RANK, run.nnz)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            paper = 2.0 * len(run.dims) * run.nnz * RANK
+            check(mm.flops == mm.paper_flops == paper,
+                  f"{run.key} mode {mm.mode}: flops {mm.flops} != closed form {paper}")
+            kms = kernel_ms[run.dims][mm.mode]
+            rows.append(dict(ms=mm.steady_s * 1e3, event_ms=mm.steady_device_s * 1e3,
+                             first_ms=mm.first_s * 1e3, kernel_ms=kms, bound_ms=bound))
+            print(f"    mode {mm.mode}: {run.dims[mm.mode]} rows, steady {mm.steady_s * 1e3:.4f} ms "
+                  f"per call (CUDA events {mm.steady_device_s * 1e3:.4f} ms), first "
+                  f"{mm.first_s * 1e3:.3f} ms; the kernel alone {kms:.4f} ms ({BACK_TO_BACK} back "
+                  f"to back), byte bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB), "
+                  f"flops {mm.flops:.4g} = 2·N·|T|·R")
+        for _, mode, max_abs, max_rel, ok in [h for h in held if h[0] == run.dims]:
+            print(f"    mode {mode} first call vs plain: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+                  f"{'ok' if ok else 'FAIL'} (tol {F32_TOL:g} x scale)")
+        hs = {k: f"{v:.2f}" for k, v in run.host_s.items()}
+        print(f"    host s: {hs}; hit rates: {len(run.hit_rates)} scenarios, max |trace - che(L)| "
+              f"{max(h.max_abs_err for h in run.hit_rates):.4f}, all_within_tol {run.all_within_tol} "
+              f"(tol {CHE_VS_TRACE_TOL}, printed, not asserted)")
+        entries[run.tensor] = dict(dims=list(run.dims), nnz=run.nnz, launches=n_launches,
+                                   per_mode_ms=[r["ms"] for r in rows],
+                                   per_mode_event_ms=[r["event_ms"] for r in rows],
+                                   per_mode_kernel_ms=[r["kernel_ms"] for r in rows],
+                                   per_mode_bound_ms=[r["bound_ms"] for r in rows],
+                                   host_s=run.host_s, all_within_tol=run.all_within_tol)
+    check(len(held) == sum(len(r.dims) for r in result.runs), f"{len(held)} first calls held")
+    check(all(h[4] for h in held), "a first call of the engine disagrees with the plain version")
+    print("  E-SRAM -> O-SRAM, priced (measured trace hit rates) beside modeled (Che):")
+    for key, sp in result.speedup_table().items():
+        ev = result.energy_table()[key]
+        print(f"    {key}: speedup {sp['priced']:.4f} (Che {sp['modeled']:.4f}), energy saving "
+              f"{ev['priced']:.4f} (Che {ev['modeled']:.4f})")
+    for run in result.runs:
+        for tech in run.techs:
+            print(f"    {run.key} {tech.tech}: priced {sum(tech.priced_mode_s):.4e} s, modeled "
+                  f"{sum(tech.modeled_mode_s):.4e} s, measured-vs-priced share residual max "
+                  f"{tech.max_share_residual:.4f}")
+
+    # The NELL-2 run's hit rates, again on the host from the plans' traces.
+    nell = result.runs[0]
+    nell_tensor = tensors[nell.dims]
+    t0 = time.perf_counter()
+    same = True
+    for h in nell.hit_rates:
+        geometry = CacheGeometry(capacity_bytes=h.capacity_bytes, line_bytes=h.line_bytes,
+                                 associativity=h.associativity)
+        cfg, row_bytes = geometry_sim_config(geometry, RANK, n_inputs=len(nell.dims) - 1)
+        plan = ops.get_plan(nell_tensor, h.mode)
+        rates = tuple(simulate_trace(plan.executed_row_trace(k, include_padding=False), cfg,
+                                     row_bytes=row_bytes).hit_rate
+                      for k in range(len(nell.dims)) if k != h.mode)
+        same = same and rates == h.trace
+    print(f"  NELL-2 hit rates recomputed from executed_row_trace: "
+          f"{'equal' if same else 'DIFFER'} over {len(nell.hit_rates)} scenarios "
+          f"({time.perf_counter() - t0:.1f} s host)")
+    check(same, "the engine's NELL-2 hit rates differ from the plans' traces")
+
+    t0 = time.perf_counter()
+    ref = run_experiments(ExperimentSpec(tensors=ENGINE_TENSORS[:1], impls=("ref",),
+                                         n_iters=ENGINE_ITERS, fused=True, device="cuda"))
+    ref_run = ref.runs[0]
+    gap = abs(ref_run.measured.fit - nell.measured.fit)
+    print(f"  {ref_run.key}: {time.perf_counter() - t0:.1f} s host wall; steady ms per mode "
+          f"{[round(mm.steady_s * 1e3, 4) for mm in ref_run.measured.modes]} (CUDA events "
+          f"{[round(mm.steady_device_s * 1e3, 4) for mm in ref_run.measured.modes]}); fit "
+          f"{ref_run.measured.fit:.6f}, kernel {nell.measured.fit:.6f}, gap {gap:.3e} "
+          f"(tol {fit_tol}); speedup priced {ref.speedup_table()[ref_run.key]['priced']:.4f}; "
+          f"host s {({k: round(v, 2) for k, v in ref_run.host_s.items()})}")
+    check(gap <= fit_tol, f"ref and kernel fits on NELL-2 differ by {gap}")
+    check(ref_run.measured.fused_max_fit_delta <= fit_tol, "ref fused fits differ from eager")
+    ops.clear_caches()
+
+    # The controller's gates, as scripts/run_controller.py runs them.
+    t0 = time.perf_counter()
+    cells, _ = reconcile_controller()
+    recon_s = time.perf_counter() - t0
+    for c in cells:
+        print(f"    recon {c.workload:8s} {c.tech:7s} analytic {c.analytic_seconds:.4e} s, "
+              f"controller {c.controller_seconds:.4e} s, rel {c.rel_err:+.5f}")
+    check(all(c.ok and c.rel_err >= -1e-9 for c in cells),
+          f"the controller does not reconcile within {CONTROLLER_RECON_TOL}")
+    t0 = time.perf_counter()
+    gates = controller_gates(rank=RANK, device=dev)
+    gates_s = time.perf_counter() - t0
+    rates = {o: c.conflict_rate for o, c in gates.conflicts.items()}
+    print(f"  controller: reconciliation {len(cells)} cells in {recon_s:.1f} s host (tol "
+          f"{CONTROLLER_RECON_TOL}); paper bands {gates.bands} (speedup {SPEEDUP_BAND}, energy "
+          f"{ENERGY_BAND}); bank conflict rates {rates}; bands and conflicts {gates_s:.1f} s host")
+    check(gates.bands_ok, f"the cycle model leaves the paper bands: {gates.bands}")
+    check(gates.conflicts_ok, f"degree/blocked do not reduce bank conflicts: {rates}")
+    t0 = time.perf_counter()
+    sweep = run_reorder_sweep(quick=True, device=dev)
+    reorder_s = time.perf_counter() - t0
+    acc = sweep["acceptance"]
+    print(f"  ordering benchmark (quick, orders sorted on the card): {reorder_s:.1f} s host; "
+          f"winners {({n: r['winners'] for n, r in acc['tensors'].items()})}, ok {acc['ok']}")
+    check(acc["ok"], f"the ordering benchmark's acceptance fails: {acc}")
+    return dict(launches=launches, by_variant=by_variant, runs=entries,
+                max_abs=max(h[2] for h in held), engine_s=engine_s,
+                ref=dict(per_mode_ms=[mm.steady_s * 1e3 for mm in ref_run.measured.modes],
+                         per_mode_event_ms=[mm.steady_device_s * 1e3 for mm in ref_run.measured.modes],
+                         host_s=ref_run.host_s, fit_gap=gap),
+                speedup=result.speedup_table(), energy=result.energy_table(),
+                recon_s=recon_s, gates_s=gates_s, reorder_s=reorder_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -1354,13 +1584,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served = service_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = engine_phase(dev, card)
     row_run = ordered["launches"].get("rows", 0)
     mttkrp_entry["launches_by_path"] = {
         "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
-        "cp_als_fused, lex / secondary-sort / degree (phase 10)": row_run}
-    mttkrp_entry["launches"] += served["launches"] + row_run
+        "cp_als_fused, lex / secondary-sort / degree (phase 10)": row_run,
+        "run_experiments, impl kernel (phase 11)": engine["launches"]}
+    mttkrp_entry["launches"] += served["launches"] + row_run + engine["launches"]
     mttkrp_entry["max_abs_err"] = max(
-        [mttkrp_entry["max_abs_err"], served["stacked_max_abs"]]
+        [mttkrp_entry["max_abs_err"], served["stacked_max_abs"], engine["max_abs"]]
         + [r["max_abs"] for o, res in ordered["results"].items() if o != "blocked"
            for r in res["rows"]])
     mttkrp_entry["per_ordering"] = {
@@ -1396,6 +1630,8 @@ def main() -> int:
         sweep_profile=ordered["results"]["blocked"]["tile_split_ms"],
         launches_by_path={"cp_als_fused, blocked (phase 10)": ordered["launches"].get("tiles", 0)},
     )
+    mttkrp_entry["engine"] = {k: engine[k] for k in (
+        "runs", "ref", "speedup", "energy", "engine_s", "recon_s", "gates_s", "reorder_s")}
     mttkrp_entry["service"] = {k: served[k] for k in (
         "stats", "batch_ms", "profile_ms", "peak_gb", "stage_host_ms", "enqueue_ms", "stacked_ms",
         "stacked_plain_ms", "stacked_bound_ms")}

@@ -51,7 +51,7 @@ def check_impl(impl: str) -> None:
     """Raise unless ``impl`` is one of the ported implementations."""
     if impl == "sharded":
         raise NotImplementedError(
-            "impl='sharded' is not ported yet (ROADMAP Queue 1, "
+            "impl='sharded' is not ported yet (ROADMAP.md Queue 1 item 8, "
             "'distributed/mttkrp_dist on torch.distributed')"
         )
     if impl not in IMPLS:

@@ -158,6 +158,24 @@ class MTTKRPPlan:
         real = int((self.sorted_values != 0).sum())
         return self.nnz_pad / max(real, 1)
 
+    def executed_row_trace(self, k: int, *, include_padding: bool = True) -> np.ndarray:
+        """Factor-``k`` row indices in the plan's linearized order.
+
+        The experiment engine's trace-capture hook (DESIGN.md §7): column
+        ``k`` of ``sorted_indices`` is the access stream of input factor
+        ``k`` in the modelled FPGA's streaming order (Algorithm 1).  The
+        CUDA kernel reads the same stream, but its warps run slices of it
+        at once, so this is not the card's own access order.
+        ``include_padding=True`` keeps the padding rows' gathers (they
+        fetch a real factor row); ``False`` keeps real nonzeros only.
+        """
+        if not (0 <= k < len(self.shape)):
+            raise ValueError(f"factor {k} out of range for {len(self.shape)}-mode plan")
+        trace = self.sorted_indices[:, k]
+        if include_padding:
+            return trace.copy()
+        return trace[self.sorted_values != 0]
+
 
 def build_mttkrp_plan(
     tensor: SparseTensor,
@@ -245,6 +263,23 @@ def build_mttkrp_plan(
     )
 
 
+def first_occurrences(idx: np.ndarray, shape: Sequence[int]) -> np.ndarray:
+    """Index of the first draw of each distinct coordinate of ``idx``,
+    in ascending (C) order of the coordinates.
+
+    The JAX package sorts the raveled keys, which needs the volume to fit
+    in an int64; so does this copy when it fits, and sorts the coordinate
+    rows (the same order and the same first draws) when it does not, as
+    LBNL's at Table II size (1600 x 4200 x 1600 x 4200 x 868100 = 3.9e19).
+    """
+    if np.prod([float(s) for s in shape]) < float(np.iinfo(np.intp).max):
+        keys = np.ravel_multi_index(tuple(idx.T), shape, mode="wrap")
+        _, first = np.unique(keys, return_index=True)
+    else:
+        _, first = np.unique(idx, axis=0, return_index=True)
+    return first
+
+
 def random_sparse_tensor(
     shape: Sequence[int],
     nnz: int,
@@ -265,8 +300,8 @@ def random_sparse_tensor(
       index value by a permutation);
     * ``correlation`` couples the modes' hot rows through a shared latent
       quantile, one of ``n_clusters`` bands (0 keeps modes independent);
-    * duplicate coordinates are coalesced, so the result may hold fewer
-      than ``nnz`` nonzeros;
+    * duplicate coordinates are coalesced (``first_occurrences``), so the
+      result may hold fewer than ``nnz`` nonzeros;
     * ``shuffle`` randomizes the COO storage order after coalescing.
     """
     if not 0.0 <= correlation <= 1.0:
@@ -295,10 +330,7 @@ def random_sparse_tensor(
             perm = rng.permutation(dim)  # decorrelate rank from index value
             cols.append(perm[np.clip(ranks, 0, dim - 1)])
     idx = np.stack(cols, axis=1)
-    # Coalesce duplicates.
-    keys = np.ravel_multi_index(tuple(idx.T), shape, mode="wrap")
-    _, first = np.unique(keys, return_index=True)
-    idx = idx[first].astype(np.int32)
+    idx = idx[first_occurrences(idx, shape)].astype(np.int32)  # coalesce duplicates
     vals = rng.standard_normal(idx.shape[0]).astype(dtype)
     if shuffle:
         perm = rng.permutation(idx.shape[0])

@@ -1,17 +1,34 @@
 """Synthetic sparse tensors matching FROSTT characteristics (Table II).
 
-Copy of ``make_frostt_like`` / ``scaled_dims`` from
-``repro.data.synthetic_tensors``: a stand-in whose mode-size ratios,
-density regime and per-mode index skew match Table II, scaled by
-``scale``.  The draws are the JAX package's, array for array.
+Copy of ``repro.data.synthetic_tensors``: ``make_frostt_like`` gives a
+stand-in whose mode-size ratios, density regime and per-mode index skew
+match Table II, scaled by ``scale`` (the draws are the JAX package's,
+array for array); ``scaled_characteristics`` describes a materialized
+stand-in for the analytic model; ``EXPERIMENT_SCALES`` are the experiment
+engine's default scales.
 """
 
 from __future__ import annotations
 
 from repro_torch.core.sparse_tensor import SparseTensor, random_sparse_tensor
-from repro_torch.data.frostt import FROSTT_TENSORS
+from repro_torch.data.frostt import FROSTT_TENSORS, FrosttTensor
 
-__all__ = ["make_frostt_like", "scaled_dims"]
+__all__ = [
+    "make_frostt_like",
+    "scaled_dims",
+    "scaled_characteristics",
+    "EXPERIMENT_SCALES",
+]
+
+# Default (name, scale) pairs of the experiment engine
+# (repro_torch.experiments), the JAX package's: CP-ALS runs in seconds per
+# impl on the CPU while each stand-in keeps its dataset's mode-ratio and
+# skew regime (LBNL keeps its 5 modes).
+EXPERIMENT_SCALES: dict[str, float] = {
+    "NELL-2": 2e-4,
+    "LBNL": 2e-2,
+    "PATENTS": 2e-5,
+}
 
 
 def scaled_dims(name: str, scale: float) -> tuple[int, ...]:
@@ -46,4 +63,25 @@ def make_frostt_like(
         correlation=correlation,
         n_clusters=n_clusters,
         shuffle=shuffle,
+    )
+
+
+def scaled_characteristics(
+    name: str, tensor: SparseTensor, *, scale: float
+) -> FrosttTensor:
+    """Table-II-style characteristics of a MATERIALIZED scaled tensor.
+
+    The analytic model prices a ``FrosttTensor`` record; for the experiment
+    engine it must describe the tensor that actually ran (post-coalescing
+    nnz, actual dims), so that the measured and the modeled side price the
+    same workload (DESIGN.md §7).  The skew is the catalog's
+    ``zipf_alpha``, which ``make_frostt_like`` draws with.
+    """
+    t = FROSTT_TENSORS[name]
+    return FrosttTensor(
+        name=f"{name}@{scale:g}",
+        dims=tensor.shape,
+        nnz=tensor.nnz,
+        density=tensor.density,
+        zipf_alpha=t.zipf_alpha,
     )
