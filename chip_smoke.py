@@ -82,10 +82,14 @@ Phases, each of which fails the run (exit code 1, no result line):
      block kernel and the plain version beside the byte bound, and one
      ``cp_als_fused(ordering=o, restarts=4, impl="kernel")`` of 5 sweeps
      whose fits must stay within FUSED_FIT_TOL of phase 3's lex run, its
-     launches counted by variant and mode (all split, 0 block); on the
-     blocked plans, a ``torch.profiler`` trace of one sweep splits the tile
-     mode's time between its main launch and its carry pass.  Blocked runs
-     second, after lex; each ordering's plans are freed before the next.
+     launches counted by variant and mode (all split, 0 block); the tile
+     mode's grid at B=1 and B=4 (CTAs, warps per CTA and per SM, restarts a
+     pass, shared memory per CTA), the bound at B=4 (the stream once,
+     factors, output and flops 4 times) beside the B=4 time, and on the
+     blocked plans a ``torch.profiler`` trace of one sweep at B=1 and one
+     at B=4 that splits the tile mode's time between its main launch and
+     its carry pass.  Blocked runs second, after lex; each ordering's plans
+     are freed before the next.
  11. the paper's experiment engine (``repro_torch.experiments``) through
      the split kernel: ``run_experiments`` with ``impls=("kernel",)``, 3
      sweeps eager and fused (cold and warm), on the largest stand-ins that
@@ -114,7 +118,8 @@ with the main paths' kernels' numbers (the split MTTKRP kernel's row-run
 mode with the block kernel's time as ``previous_ms``, its launches over
 the CP-ALS paths of phases 3, 9, 10 and 11, its per-ordering times and
 phase 11's per-tensor times; its
-tile mode, on the blocked plans of phase 10; and the wgmma flash kernel
+tile mode, on the blocked plans of phase 10, with the block kernel's time
+as ``previous_ms``; and the wgmma flash kernel
 with the ``mma.sync`` kernel's), and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
@@ -634,10 +639,14 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
     tile mode's time between its two launches.  Each ordering's plans are
     freed before the next."""
     phase(f"phase 10: the orderings {ORDERINGS} at NELL-2 Table II size, rank {RANK}")
-    ctas, warps = kmod.tile_grid(tensor.nmodes, 256, torch.float32, dev)
-    print(f"  tile mode: {ctas} CTAs x {warps} warps ({ctas * warps} slices, "
-          f"{ctas * warps // torch.cuda.get_device_properties(dev).multi_processor_count} warps "
-          f"per SM); row-run mode: {kmod.split_slices(tensor.nmodes, 1, torch.float32, dev)} slices")
+    grids = {}
+    for batch in (1, RESTARTS):
+        g = kmod.tile_grid(tensor.nmodes, 256, torch.float32, dev, batch=batch)
+        grids[f"B={batch}"] = g._asdict()
+        print(f"  tile mode at B={batch}: {g.ctas} CTAs (slices) x {g.warps} warps, "
+              f"{g.warps_per_sm} warps per SM, {g.b_pass} restart(s) a pass, {g.smem_bytes} "
+              f"bytes of shared memory per CTA")
+    print(f"  row-run mode: {kmod.split_slices(tensor.nmodes, 1, torch.float32, dev)} slices")
     idx_dev = torch.as_tensor(tensor.indices, device=dev)
     results, launches = {}, collections.Counter()
     for o in PHASE10_ORDER:
@@ -697,23 +706,29 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
             plain = median_ms(lambda: mttkrp_plan_ref(bufs, facs, p.mode, i_out), TIMING_REPS, 1)
             nbytes, flops = mttkrp_bytes(p, RANK, tensor.nnz), mttkrp_flops(p, RANK, tensor.nnz)
             bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+            # B restarts: the stream once, factors, output and flops B times.
+            bound_b = max(mttkrp_bytes(p, RANK * RESTARTS, tensor.nnz) / HBM_BYTES_PER_S,
+                          RESTARTS * flops / F32_FLOPS_PER_S) * 1e3
             rows.append(dict(mode=p.mode, split_mode=mode_name, ms=ms, ms_b4=ms_b, tiles_ms=tiles,
-                             block_ms=block, plain_ms=plain, bound_ms=bound,
+                             block_ms=block, plain_ms=plain, bound_ms=bound, bound_ms_b4=bound_b,
                              max_abs=max(max_abs, max_abs_b), ok=ok and ok_b, same=same))
             print(f"    mode {p.mode}: split ({mode_name}) {ms:.3f} ms (B={RESTARTS}: {ms_b:.3f} ms), "
                   f"tile mode {tiles:.3f} ms, block {block:.3f} ms, plain {plain:.3f} ms, bound "
-                  f"{bound:.4f} ms (share {bound / ms:.4f}); B=1 max_abs {max_abs:.3e} max_rel "
+                  f"{bound:.4f} ms (share {bound / ms:.4f}; B={RESTARTS}: {bound_b:.4f} ms, share "
+                  f"{bound_b / ms_b:.4f}); B=1 max_abs {max_abs:.3e} max_rel "
                   f"{max_rel:.3e} {'ok' if ok else 'FAIL'}, B={RESTARTS} max_abs {max_abs_b:.3e} "
                   f"max_rel {max_rel_b:.3e} {'ok' if ok_b else 'FAIL'} (tol {F32_TOL:g} x scale); "
                   f"two launches bit for bit {'equal' if same else 'DIFFER'}  [{card}]")
         tile_split = {}
-        if o == "blocked":  # the tile mode's two launches apart, one sweep at B=1
-            tile_split = device_ms_by_kernel(lambda: [
-                kmod.mttkrp_cuda(b, facs, p.mode, p.shape[p.mode]) for p, b in zip(plans, bufs_all)],
-                launches=len(plans))
-            print(f"    profile of one B=1 sweep in the tile mode ({len(plans)} launches of each): " + (
-                ", ".join(f"{k} {v['ms']:.3f} ms over {v['launches']} recorded launches"
-                          for k, v in tile_split.items()) or "not measured") + f"  [{card}]")
+        if o == "blocked":  # the tile mode's two launches apart, one sweep at B=1 and at B=4
+            for batch, fs in ((1, facs), (RESTARTS, batched)):
+                split = tile_split[f"B={batch}"] = device_ms_by_kernel(lambda: [
+                    kmod.mttkrp_cuda(b, fs, p.mode, p.shape[p.mode])
+                    for p, b in zip(plans, bufs_all)], launches=len(plans))
+                print(f"    profile of one B={batch} sweep in the tile mode ({len(plans)} launches "
+                      f"of each): " + (", ".join(
+                          f"{k} {v['ms']:.3f} ms over {v['launches']} recorded launches"
+                          for k, v in split.items()) or "not measured") + f"  [{card}]")
         del facs, batched
         check(all(r["ok"] for r in rows), f"{o}: the split kernel disagrees with plain")
         check(all(r["same"] for r in rows), f"{o}: two launches of the split kernel differ")
@@ -747,7 +762,7 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
     ops.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(results=results, launches=dict(launches))
+    return dict(results=results, launches=dict(launches), tile_grid=grids)
 
 
 def flash_cases(dev) -> None:
@@ -1605,6 +1620,7 @@ def main() -> int:
                 per_mode_block_ms=[r["block_ms"] for r in res["rows"]],
                 per_mode_plain_ms=[r["plain_ms"] for r in res["rows"]],
                 per_mode_bound_ms=[r["bound_ms"] for r in res["rows"]],
+                per_mode_bound_ms_b4=[r["bound_ms_b4"] for r in res["rows"]],
                 order_device_ms=res["order_ms"], plan_host_s=res["plan_s"],
                 fused_fit_gap=res["fit_gap"])
         for o, res in ordered["results"].items()}
@@ -1626,7 +1642,12 @@ def main() -> int:
         per="one CP-ALS sweep of MTTKRPs over the blocked ordering's plans: modes 0-2, one restart",
         per_mode_ms=[r["ms"] for r in blocked],
         per_mode_ms_b4=[r["ms_b4"] for r in blocked],
+        ms_b4=sum(r["ms_b4"] for r in blocked),
+        bound_ms_b4=sum(r["bound_ms_b4"] for r in blocked),
+        per_mode_bound_ms_b4=[r["bound_ms_b4"] for r in blocked],
+        per_mode_block_ms=[r["block_ms"] for r in blocked],
         per_mode_ms_on_lex_plans=[r["tiles_ms"] for r in ordered["results"]["lex"]["rows"]],
+        grid=ordered["tile_grid"],
         sweep_profile=ordered["results"]["blocked"]["tile_split_ms"],
         launches_by_path={"cp_als_fused, blocked (phase 10)": ordered["launches"].get("tiles", 0)},
     )

@@ -75,8 +75,9 @@
 // primary key and brings a row back once per input band, so the row-run
 // mode would store such a row once per run.  The TPU kernel is right for it
 // because it accumulates the whole block in VMEM.  The tile mode (at the end
-// of this file) does the same per warp in shared memory; the wrapper picks
-// the mode from the plan's contiguity flag.
+// of this file) does the same per CTA in shared memory, each warp adding to
+// its own part of the tile; the wrapper picks the mode from the plan's
+// contiguity flag.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -493,7 +494,7 @@ struct LaunchArgs {
     int32_t* carry_row;
     long long nnz_pad;
     int num_blocks, nmodes, mode, rank, batch, i_out, ctas;
-    int rows_per_block = 0, warps = 0;  // tile mode only
+    int rows_per_block = 0;  // tile mode only
 };
 
 template <typename T, int NO, int NB, bool VEC>
@@ -537,81 +538,237 @@ static cudaError_t dispatch(const LaunchArgs* a, int nmodes, int batch, int vec,
 // ---------------------------------------------------------------------------
 // Tile mode: any plan, including those whose rows are not contiguous.
 //
-// The same nonzero-balanced slices as the row-run mode, one restart per pass
-// (grid.z) and 16 rank columns per pass (grid.y).  Each warp keeps the output
-// block it is in as a float32 tile of rows_per_block x 16 in shared memory
-// (16 KB at 256 rows; the host picks the warps per CTA that put the most
-// warps on an SM, at most 8) and adds each run of products at its row:
+// Replaces the same TPU kernel (src/repro/kernels/mttkrp/kernel.py:_kernel)
+// on the plans it is right for because it accumulates a whole output block
+// in VMEM: the "blocked" ordering's, which keep the output block as their
+// primary key and bring a row back once per input band.
 //
-//  * Runs of one row that sit next to each other are summed in registers
-//    first, as in the row-run mode (an open run across steps while every
-//    entry continues it; else a segmented scan over the step's groups).
-//  * A run's total goes to the tile by the run's last group.  Where two
-//    groups of a step end runs on one row (match_any finds them), the groups
-//    add one after the other in group order; else all at once.  No atomics,
-//    so every sum runs in an order fixed by the grid and two launches on the
-//    same inputs agree bit for bit.
-//  * When the stream leaves a block, the warp stores the tile whole: to the
-//    output if the block starts and ends inside its slice, else to a carry
-//    scratch of (W, 2, batch, rows_per_block, rank), slot 0 for its first
-//    block and slot 1 for its last.  The tile starts at zero, so every row
-//    of the block gets its value, and every block (an empty one holds a tile
-//    of padding) is stored.
-//  * A second launch takes the elements of each (block, restart), 256 to a
-//    CTA: if slices hold carry tiles of the block, it sums an element's
-//    carries in slice order and stores it once.  So every output element is stored exactly once across the
-//    pair of launches.
+// What bounds it on the H100 is the same 16 bytes per nonzero of stream (at
+// N = 3) as in the row-run mode.  What held an earlier design, a tile per
+// warp, at 7% of that bound was latency: the tiles left 14 warps on an SM,
+// each waiting on factor gathers from L2, and every 8 nonzeros took a chain
+// of some 40 warp-wide shuffles and votes, because the blocked ordering's
+// runs are about one nonzero long.  This design:
+//
+//  * One tile per CTA.  Each CTA of a persistent grid (the occupancy API's
+//    CTAs per SM times the SM count) takes an equal contiguous slice
+//    [nnz_pad*c/C, nnz_pad*(c+1)/C) of the padded stream, and holds in
+//    shared memory one tile of the output block it is in: rows_per_block x
+//    16 columns x b_pass restarts, float32 (16 KB a restart at 256 rows).
+//  * Warps own disjoint parts.  Warp (b, h) of a CTA of TILE_SPLIT = 2
+//    warps per restart adds only to columns 8h..8h+7 of restart b; the tile
+//    is laid out [restart][row][16].  No two warps write one word, so the
+//    loop needs no atomics and no block barrier.  Warps without columns
+//    (rank 8 and below in a pass) or restart (a ragged restart pass) exit
+//    at the start.
+//  * 16 nonzeros a step, 2 lanes a nonzero, U = 4 steps in flight.  A lane
+//    gathers one float4 (its four columns; 8 bytes in bf16) of each input
+//    factor row of its nonzero, so a warp's gather covers 32 bytes of 16
+//    rows, with clamped, unguarded addresses, and multiplies.  Then
+//    neighbouring nonzeros compare rows (two shuffles): where every row of
+//    the step differs from its neighbour's, each nonzero's lanes add its
+//    product to its tile row, a float4 read-modify-write each.  Runs longer
+//    than one nonzero are summed by a segmented scan over the step's
+//    nonzeros in a fixed order, as many rounds as the longest run needs,
+//    and the run's last nonzero adds the sum.  A row can come back later in
+//    the same step only after a descent of the row (the blocked ordering
+//    starts a new input band); each descent starts a new turn, and the
+//    turns add one after the other in stream order.  The shuffles and
+//    votes of the U steps are independent and issued together; only the
+//    read-modify-writes go one step after the other.  Every sum thus runs
+//    in an order fixed by the grid, and two launches on the same inputs
+//    agree bit for bit.
+//    Measured on the card beside this layout: warps of one 4-column
+//    quarter, a lane a nonzero, gathered 16 bytes of each row four times
+//    over and took 1.4 times as long at NELL-2 Table II size; 4 lanes a
+//    nonzero and one warp a restart, whose 16 KB tile left 10 warps on an
+//    SM, took longer too.
+//  * Indices and values once per CTA.  The warps of a CTA read the same
+//    entries, so they are staged into a ring of TILE_STAGES chunks of
+//    TILE_STAGE nonzeros by Hopper's bulk asynchronous copy (cp.async.bulk,
+//    completion counted on an mbarrier), TILE_AHEAD chunks ahead of the
+//    one in use; the warps read them from shared memory (faster on the
+//    card than each warp's own __ldg of them).  With b_pass restarts a pass
+//    the stream is read once for all of them.  Chunks start
+//    at a multiple of 4 entries, so that every copy is 16-byte aligned; the
+//    stream's last nnz_pad % 4 entries are copied by plain loads.
+//  * Store once, with no atomics.  When the stream leaves a block, each warp
+//    stores its part of the tile: to the output if the CTA's slice holds
+//    the block whole, else to the CTA's carry slot 0 (its first block) or 1
+//    (its last).  The tile starts at zero, so every row of the block gets
+//    its value, and every block (an empty one holds a tile of padding) is
+//    stored.  A second launch sums each shared block's carry tiles in slice
+//    order and stores it once.  So every output element is stored exactly
+//    once across the pair of launches.
 //
 // Padding is skipped by position (block_real_end), as in the row-run mode.
-// Its costs over the row-run mode: the tile bounds the warps an SM holds (14
-// at 256 rows, against the row-run mode's 24), and where runs are short, as
-// in the blocked ordering, nearly every step takes the segmented scan and a
-// shared-memory read-modify-write per run.
-#define TILE_MAX_WARPS 8
+// Rank columns beyond 16 run in further passes (grid.y), restarts beyond
+// b_pass in further passes (grid.z).  On the card the design still takes
+// about 11 times its byte bound at one restart: its time grows with
+// restarts x nonzeros (B = 4 costs 3.8 times B = 1), not with the stream,
+// and it ran faster with every extra warp per SM that was tried, so what
+// bounds it is the latency of each warp's chain of gathers, shuffles and
+// read-modify-writes with 20-24 warps on an SM.
+#define TILE_TPN 2                               // lanes per nonzero, 4 columns each
+#define TILE_GROUPS (32 / TILE_TPN)              // nonzeros per warp step
+#define TILE_SPLIT (CHUNK / (4 * TILE_TPN))      // warps per restart, a column part each
+#define TILE_HEADS (TILE_TPN == 4 ? 0x11111111u : 0x55555555u)  // each nonzero's first lane
+#define TILE_MAX_PASS 4        // restarts per pass
+#define TILE_U 4               // warp steps of TILE_GROUPS nonzeros in flight
+#define TILE_STAGE 64          // nonzeros per staged chunk: a multiple of TILE_GROUPS * TILE_U and of 4
+#define TILE_STAGES 4          // chunks in the ring
+#define TILE_AHEAD 2           // chunks filled ahead of the one in use; the other one is slack
+
+// Bytes of dynamic shared memory a CTA takes: the tile, the staging ring and
+// its barriers.
+static size_t tile_smem_bytes(int nmodes, int rpb, int b_pass)
+{
+    return static_cast<size_t>(b_pass) * rpb * CHUNK * 4 +
+           static_cast<size_t>(TILE_STAGES) * TILE_STAGE * (nmodes + 1) * 4 +
+           2 * TILE_STAGES * sizeof(uint64_t);
+}
+
+// Restarts a pass on the current device: the most, at most TILE_MAX_PASS and
+// at most `batch`, whose CTA fits the shared memory a block may opt in to; 0
+// when a single restart's does not.
+static cudaError_t tile_b_pass(int nmodes, int rpb, int batch, int* b_pass)
+{
+    int dev = 0, limit = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    *b_pass = 0;
+    for (int b = 1; b <= TILE_MAX_PASS && b <= batch; ++b)
+        if (tile_smem_bytes(nmodes, rpb, b) <= static_cast<size_t>(limit)) *b_pass = b;
+    return cudaSuccess;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p)
+{
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.  A wait
+// that outlasts any real copy (2^26 polls, seconds) traps, so a fault in the
+// pipeline ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
+{
+    uint32_t done;
+    uint32_t polls = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (++polls == (1u << 26)) __trap();
+    } while (!done);
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory into shared
+// memory; completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar)
+{
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// Runs and turns of S warp steps at once, so that their shuffles and votes
+// overlap.  For step s, key[s] is each lane's tile row (-1: it adds
+// nothing; the groups that add are a contiguous range).  On return, on the
+// last group of each run of one row (tail[s]), v[s] holds the run's sum, a
+// segmented scan over the groups in a fixed order, as many rounds as the
+// longest run needs; seg[s] is that group's non-descending segment of rows
+// (its turn), and turns[s] the step's last turn.
+template <int S>
+__device__ __forceinline__ void tile_runs(const int (&key)[S], float (&v)[S][4], bool (&tail)[S],
+                                          int (&seg)[S], int (&turns)[S])
+{
+    const int lane = threadIdx.x & 31;
+    const int g = lane / TILE_TPN;
+    const unsigned heads_le = (0xffffffffu >> (31 - lane)) & TILE_HEADS;  // groups 0..g
+    bool open[S];  // the lane's sum has not reached its run's head
+    unsigned scan = 0;  // the steps with a run longer than one nonzero
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int kp = __shfl_up_sync(FULL, key[s], TILE_TPN);
+        const int kn = __shfl_down_sync(FULL, key[s], TILE_TPN);
+        const bool valid = key[s] >= 0;
+        const bool head = valid && (g == 0 || kp != key[s]);
+        tail[s] = valid && (g == TILE_GROUPS - 1 || kn != key[s]);
+        open[s] = valid && !head;
+        if (__any_sync(FULL, open[s])) scan |= 1u << s;
+        const unsigned desc = __ballot_sync(FULL, valid && kp > key[s]) & TILE_HEADS;
+        seg[s] = __popc(desc & heads_le);
+        turns[s] = __popc(desc);
+    }
+    for (int off = TILE_TPN; scan; off <<= 1) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+            if (!(scan & (1u << s))) continue;
+            const bool up_open = __shfl_up_sync(FULL, open[s], off);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const float up = __shfl_up_sync(FULL, v[s][c], off);
+                if (open[s]) v[s][c] = up + v[s][c];
+            }
+            if (open[s]) open[s] = up_open;
+            if (!__any_sync(FULL, open[s])) scan &= ~(1u << s);
+        }
+    }
+}
 
 template <typename T, int NO, bool VEC>
-__global__ void __launch_bounds__(TILE_MAX_WARPS * 32) mttkrp_tile_kernel(
-    const int32_t* __restrict__ indices,          // (nnz_pad, nmodes)
-    const float* __restrict__ values,             // (nnz_pad,)
+__global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLIT + 1) mttkrp_tile_kernel(
+    const int32_t* __restrict__ indices,          // (nnz_pad, nmodes), 16-byte aligned
+    const float* __restrict__ values,             // (nnz_pad,), 16-byte aligned
     const int64_t* __restrict__ block_start,      // (num_blocks + 1,)
     const int64_t* __restrict__ block_real_end,   // (num_blocks,)
     FactorArgs fac,
     float* __restrict__ out,                      // (batch, i_out, rank)
-    float* __restrict__ carry_val,                // (W, 2, batch, rpb, rank)
-    int32_t* __restrict__ carry_blk,              // (W, 2)
+    float* __restrict__ carry_val,                // (C, 2, batch, rpb, rank)
+    int32_t* __restrict__ carry_blk,              // (C, 2)
     long long nnz_pad, int num_blocks, int nmodes, int mode, int rank, int batch, int i_out,
-    int rpb)
+    int rpb, int b_pass)
 {
-    constexpr int U = 4;
     constexpr int MO = NO > 0 ? NO : MAX_MODES - 1;
-    extern __shared__ float4 tiles[];
+    extern __shared__ __align__(16) unsigned char smem[];
     const int nother = NO > 0 ? NO : nmodes - 1;
+    const int stride = NO > 0 ? NO + 1 : nmodes;  // int32 words per stream entry
     const int lane = threadIdx.x & 31;
-    const int g = lane / TPN;
-    const int q = lane % TPN;
-    const int warps = blockDim.x >> 5;
-    const long long num_warps = static_cast<long long>(gridDim.x) * warps;
-    const long long w = static_cast<long long>(blockIdx.x) * warps + (threadIdx.x >> 5);
-    const long long lo = nnz_pad * w / num_warps;
-    const long long hi = nnz_pad * (w + 1) / num_warps;
+    const int g = lane / TILE_TPN;  // nonzero of the warp step
+    const int b = (threadIdx.x >> 5) / TILE_SPLIT;  // restart of the pass
+    const int h = (threadIdx.x >> 5) % TILE_SPLIT;  // column part of the pass
+    const int q = h * TILE_TPN + lane % TILE_TPN;  // 4-column quarter of the pass
+    const long long ctas = gridDim.x;
+    const long long cta = blockIdx.x;
+    const long long lo = nnz_pad * cta / ctas;
+    const long long hi = nnz_pad * (cta + 1) / ctas;
     const int c0 = blockIdx.y * CHUNK + q * 4;
-    const int ncols = rank - c0;
-    const bool active = ncols > 0;
-    const int bz = blockIdx.z;
-    // This warp's tile: rpb rows of 16 columns, 4 float4s a row.
-    float4* tile = tiles + static_cast<size_t>(threadIdx.x >> 5) * rpb * TPN;
-
-    const int gather_cols = active ? ncols : 1;
-    const T* f[MO];
-    int fcol[MO];
-#pragma unroll
-    for (int j = 0; j < MO; ++j) {
-        const bool used = j < nother;
-        f[j] = used ? static_cast<const T*>(fac.ptr[j]) + bz * fac.batch_stride[j] +
-                          (active ? c0 : 0)
-                    : nullptr;
-        fcol[j] = used ? fac.col[j] : 0;
-    }
+    const int ncols = rank - c0;  // > 0: this lane owns min(4, ncols) columns
+    const bool has_cols = ncols > 0;
+    const int bb = blockIdx.z * b_pass + b;
 
     auto block_of = [&](long long n) {
         int a = 0, z = num_blocks;  // block_start[a] <= n < block_start[z]
@@ -621,217 +778,224 @@ __global__ void __launch_bounds__(TILE_MAX_WARPS * 32) mttkrp_tile_kernel(
         }
         return a;
     };
-    int blk = block_of(lo + g);  // the block of this thread's entry, followed as n grows
-    long long blk_end = block_start[blk + 1];
-    long long real_end = block_real_end[blk];
-    int cur_blk = block_of(lo);  // the warp's tile's block
-    const int first_blk = cur_blk;
-    int carried0 = -1, carried1 = -1;
-    int cur_row = -1;  // the warp's open run (-1: none)
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (lo >= hi) {  // an empty slice (fewer nonzeros than CTAs)
+        if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+            carry_blk[2 * cta] = -1;
+            carry_blk[2 * cta + 1] = -1;
+        }
+        return;
+    }
 
-    auto zero_tile = [&]() {
-        for (int e = lane; e < rpb * TPN; e += 32) tile[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        __syncwarp();
-    };
-    auto group_sum = [&](const float (&x)[4], float (&t)[4]) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float s = x[j];
-#pragma unroll
-            for (int off = TPN; off < 32; off <<= 1) s += __shfl_xor_sync(FULL, s, off);
-            t[j] = s;
+    // Shared memory: the tile (b_pass restarts of rpb rows of 4 float4s),
+    // the ring of staged chunks (indices, then values), then the barriers.
+    // Restart b's rows; this warp adds to float4 q of each.
+    float4* part = reinterpret_cast<float4*>(smem) + static_cast<size_t>(b) * rpb * 4;
+    int32_t* ring = reinterpret_cast<int32_t*>(
+        reinterpret_cast<float4*>(smem) + static_cast<size_t>(b_pass) * rpb * 4);
+    const int stage_words = TILE_STAGE * (stride + 1);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(ring + TILE_STAGES * stage_words);
+    const uint32_t full0 = smem_u32(bars);                 // TILE_STAGES "full" barriers
+    const uint32_t empty0 = full0 + TILE_STAGES * 8;       // TILE_STAGES "empty" barriers
+
+    // Warps with columns and a restart in this pass: the first ah column
+    // parts of the first ab restarts (warp 0 always, the producer).
+    const int ah = min(TILE_SPLIT, (rank - static_cast<int>(blockIdx.y) * CHUNK + 4 * TILE_TPN - 1) /
+                                       (4 * TILE_TPN));
+    const int ab = min(b_pass, batch - static_cast<int>(blockIdx.z) * b_pass);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < TILE_STAGES; ++s) {
+            mbar_init(full0 + 8 * s, 1);
+            mbar_init(empty0 + 8 * s, ab * ah);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (b >= ab || h >= ah) return;
+
+    // Chunk k holds entries [a0 + k*TILE_STAGE, min(.. + TILE_STAGE, hi4)).
+    const long long a0 = lo & ~3LL;
+    const long long hi4 = (hi + 3) & ~3LL;
+    const long long nnz4 = nnz_pad & ~3LL;
+    const int nchunks = static_cast<int>((hi4 - a0 + TILE_STAGE - 1) / TILE_STAGE);
+    auto stage_idx = [&](int k) { return ring + (k % TILE_STAGES) * stage_words; };
+    // Thread 0 fills chunk k's stage: bulk copies of its 16-byte aligned
+    // part, plain loads of any entries past nnz4 (the stream's last < 4).
+    auto issue = [&](int k) {
+        const long long cs = a0 + static_cast<long long>(k) * TILE_STAGE;
+        const long long ce = min(cs + TILE_STAGE, hi4);
+        int32_t* sidx = stage_idx(k);
+        float* sval = reinterpret_cast<float*>(sidx + TILE_STAGE * stride);
+        for (long long n = max(cs, nnz4); n < min(ce, nnz_pad); ++n) {
+            for (int j = 0; j < stride; ++j) sidx[(n - cs) * stride + j] = indices[n * stride + j];
+            sval[n - cs] = values[n];
+        }
+        const uint32_t bar = full0 + 8 * (k % TILE_STAGES);
+        const long long bulk = min(ce, nnz4) - cs;
+        if (bulk > 0) {
+            const uint32_t ib = static_cast<uint32_t>(bulk * stride * 4);
+            const uint32_t vb = static_cast<uint32_t>(bulk * 4);
+            mbar_expect_tx(bar, ib + vb);
+            bulk_copy(smem_u32(sidx), indices + cs * stride, ib, bar);
+            bulk_copy(smem_u32(sval), values + cs, vb, bar);
+        } else {
+            mbar_arrive(bar);
         }
     };
-    // Lanes with `add` add x to their columns of tile row `local`; groups
-    // whose rows coincide take turns in group order.
-    auto tile_add = [&](bool add, int local, const float (&x)[4]) {
-        const int key = add ? local * TPN + q : -1 - lane;
-        const unsigned peers = __match_any_sync(FULL, key);
-        const bool clash = __any_sync(FULL, __popc(peers) > 1);
-        const int turns = clash ? GROUPS : 1;
-        for (int s = 0; s < turns; ++s) {
-            if (add && (!clash || g == s)) {
-                float4 t = tile[local * TPN + q];
-                t.x += x[0]; t.y += x[1]; t.z += x[2]; t.w += x[3];
-                tile[local * TPN + q] = t;
-            }
-            __syncwarp();
-        }
-    };
-    // Store the tile of block cur_blk, then zero it: to the output if the
-    // block starts and ends in this slice, else to carry slot 0 (the slice's
-    // first block) or 1 (its last).
+    if (threadIdx.x == 0)
+        for (int k = 0; k < min(TILE_AHEAD, nchunks); ++k) issue(k);
+
+    // Gathers read column 0 on lanes without columns: valid rows, results
+    // never stored.
+    const int gather_cols = has_cols ? min(ncols, 4) : 1;
+    const T* f[MO];
+    int fcol[MO];
+#pragma unroll
+    for (int j = 0; j < MO; ++j) {
+        const bool used = j < nother;
+        f[j] = used ? static_cast<const T*>(fac.ptr[j]) + bb * fac.batch_stride[j] +
+                          (has_cols ? c0 : 0)
+                    : nullptr;
+        fcol[j] = used ? fac.col[j] : 0;
+    }
+
+    int cur_blk = block_of(lo);
+    const int first_blk = cur_blk;
+    long long blk_lo = block_start[cur_blk];
+    long long blk_end = block_start[cur_blk + 1];
+    // This block's entries that add: [v_lo, v_hi).
+    long long v_lo = max(lo, blk_lo);
+    long long v_hi = min(hi, static_cast<long long>(block_real_end[cur_blk]));
+    int carried0 = -1, carried1 = -1;
+    const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r = g; r < rpb; r += TILE_GROUPS) part[r * 4 + q] = zero4;
+    __syncwarp();
+
+    // Store this warp's part of block cur_blk's tile, then zero it: to the
+    // output if the slice holds the block whole, else to carry slot 0 (the
+    // slice's first block) or 1 (its last).  Lane (g, q) takes quarter q of
+    // rows g, g + TILE_GROUPS, ...
     auto flush = [&]() {
-        const bool own = block_start[cur_blk] >= lo && block_start[cur_blk + 1] <= hi;
+        const bool own = blk_lo >= lo && blk_end <= hi;
         const int slot = cur_blk == first_blk ? 0 : 1;
         const long long row0 = static_cast<long long>(cur_blk) * rpb;
-        float* dst = own ? out + (static_cast<long long>(bz) * i_out + row0) * rank
-                         : carry_val + ((w * 2 + slot) * batch + bz) * static_cast<long long>(rpb) * rank;
-        const long long rows = own ? min(static_cast<long long>(rpb), i_out - row0) : rpb;
-        for (long long e = lane; e < rows * TPN; e += 32) {
-            const int c = blockIdx.y * CHUNK + static_cast<int>(e % TPN) * 4;
-            if (c >= rank) continue;
-            const float4 t = tile[e];
-            const float x[4] = {t.x, t.y, t.z, t.w};
-            store4<VEC>(dst + (e / TPN) * rank + c, rank - c, x);
-        }
+        float* dst = own ? out + (static_cast<long long>(bb) * i_out + row0) * rank + c0
+                         : carry_val + ((cta * 2 + slot) * batch + bb) * static_cast<long long>(rpb) * rank + c0;
+        const int rows = static_cast<int>(min(static_cast<long long>(rpb), i_out - row0));
+        if (has_cols)
+            for (int r = g; r < rows; r += TILE_GROUPS) {
+                const float4 t = part[r * 4 + q];
+                const float x[4] = {t.x, t.y, t.z, t.w};
+                store4<VEC>(dst + static_cast<long long>(r) * rank, ncols, x);
+            }
+        for (int r = g; r < rpb; r += TILE_GROUPS) part[r * 4 + q] = zero4;
+        __syncwarp();
         if (!own) {
             if (slot == 0) carried0 = cur_blk; else carried1 = cur_blk;
         }
-        __syncwarp();
-        zero_tile();
     };
-
-    if (lo < hi) zero_tile();
-    for (long long base = lo; base < hi; base += U * GROUPS) {
-        // Loads of the U steps, all issued before any is used (as in the
-        // row-run mode): the stream entry, clamped into the slice, then the
-        // factor rows it names.
-        int row[U], nblk[U];
-        float p[U][4];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const long long n = base + u * GROUPS + g;
-            const long long nc = n < hi ? n : hi - 1;
-            const int32_t* idx_n = indices + nc * nmodes;
-            row[u] = __ldg(idx_n + mode);
-            const float val = __ldg(values + nc);
-            int ix[MO];
-#pragma unroll
-            for (int j = 0; j < MO; ++j) ix[j] = j < nother ? __ldg(idx_n + fcol[j]) : 0;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) p[u][c] = val;
-#pragma unroll
-            for (int j = 0; j < MO; ++j) {
-                if (j >= nother) break;
-                float x[4];
-                load4<VEC>(f[j] + static_cast<long long>(ix[j]) * rank, gather_cols, x);
-#pragma unroll
-                for (int c = 0; c < 4; ++c) p[u][c] *= x[c];
-            }
-        }
-        // Each entry's block (-1 past the slice); padding and entries past
-        // the slice add nothing and name no row.
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const long long n = base + u * GROUPS + g;
-            while (n >= blk_end && blk + 1 < num_blocks) {
-                ++blk;
-                blk_end = block_start[blk + 1];
-                real_end = block_real_end[blk];
-            }
-            nblk[u] = n < hi ? blk : -1;
-            if (n >= hi || n >= real_end) {
-                row[u] = -1;
-#pragma unroll
-                for (int c = 0; c < 4; ++c) p[u][c] = 0.0f;
-            }
-        }
-        // The common case: every entry of the U steps continues the open run
-        // inside the tile's block.
-        bool goes_on = true;
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-            goes_on &= nblk[u] < 0 || (nblk[u] == cur_blk && (row[u] < 0 || row[u] == cur_row));
-        if (__all_sync(FULL, goes_on)) {
-#pragma unroll
-            for (int u = 0; u < U; ++u)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) acc[c] += p[u][c];
-            continue;
-        }
-
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            // One round per block the step touches (two where it crosses a
-            // block boundary; more only for tiles of fewer than 8 entries).
-            for (;;) {
-                const bool here = nblk[u] == cur_blk;
-                const bool ahead = nblk[u] > cur_blk;
-                const bool cont = !ahead && (!here || row[u] < 0 || row[u] == cur_row);
-                if (__all_sync(FULL, cont)) {  // the open run goes on
-                    if (here) {
-#pragma unroll
-                        for (int c = 0; c < 4; ++c) acc[c] += p[u][c];
-                    }
-                    break;
-                }
-                // The open run ends: its total goes to its row (one group
-                // adds, so no turns are needed).
-                if (cur_row >= 0) {
-                    float t[4];
-                    group_sum(acc, t);
-                    if (g == 0) {
-                        float4* dst = tile + (cur_row - cur_blk * rpb) * TPN + q;
-                        float4 v4 = *dst;
-                        v4.x += t[0]; v4.y += t[1]; v4.z += t[2]; v4.w += t[3];
-                        *dst = v4;
-                    }
-                    __syncwarp();
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) acc[c] = 0.0f;
-                    cur_row = -1;
-                }
-                // The step's runs in this block, summed over the groups by a
-                // segmented inclusive scan.
-                const bool mine = here && row[u] >= 0;
-                const int key = mine ? row[u] : -1;
-                int key_prev = __shfl_up_sync(FULL, key, TPN);
-                int key_next = __shfl_down_sync(FULL, key, TPN);
-                if (g == 0) key_prev = -2;
-                if (g == GROUPS - 1) key_next = -2;
-                float v[4];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) v[c] = mine ? p[u][c] : 0.0f;
-                int flag = !mine || key != key_prev;
-                // Where no run spans two groups every flag is set and the scan
-                // would leave v as it is: skip it.
-                if (__any_sync(FULL, !flag))
-#pragma unroll
-                for (int off = 1; off < GROUPS; off <<= 1) {
-                    const int fu = __shfl_up_sync(FULL, flag, off * TPN);
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        const float up = __shfl_up_sync(FULL, v[c], off * TPN);
-                        if (g >= off && !flag) v[c] = up + v[c];
-                    }
-                    if (g >= off) flag |= fu;
-                }
-                const bool tail = mine && key != key_next;
-                const bool leaves = __any_sync(FULL, ahead);
-                // Unless the step leaves the block, its last run stays open.
-                const bool open = !leaves && g == GROUPS - 1;
-                tile_add(tail && !open, key - cur_blk * rpb, v);
-                if (!leaves) {
-                    cur_row = __shfl_sync(FULL, key, 31);
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) acc[c] = g == GROUPS - 1 ? v[c] : 0.0f;
-                    break;
-                }
-                flush();
-                ++cur_blk;
-            }
-        }
-    }
-
-    if (lo < hi) {
-        if (cur_row >= 0) {
-            float t[4];
-            group_sum(acc, t);
-            if (g == 0) {
-                float4* dst = tile + (cur_row - cur_blk * rpb) * TPN + q;
-                float4 v4 = *dst;
-                v4.x += t[0]; v4.y += t[1]; v4.z += t[2]; v4.w += t[3];
-                *dst = v4;
+    auto next_block = [&]() {
+        ++cur_blk;
+        blk_lo = blk_end;
+        blk_end = block_start[cur_blk + 1];
+        v_lo = max(lo, blk_lo);
+        v_hi = min(hi, static_cast<long long>(block_real_end[cur_blk]));
+    };
+    // Add a step's run sums to the warp's part of the tile, one turn after
+    // the other.
+    auto commit = [&](int key, const float (&v)[4], bool tail, int seg, int turns) {
+        for (int t = 0;; ++t) {
+            if (tail && seg == t) {
+                float4 x = part[key * 4 + q];
+                x.x += v[0]; x.y += v[1]; x.z += v[2]; x.w += v[3];
+                part[key * 4 + q] = x;
             }
             __syncwarp();
+            if (t == turns) break;
         }
-        flush();
+    };
+
+    for (int k = 0; k < nchunks; ++k) {
+        // Thread 0 fills chunk k + TILE_AHEAD's stage once every warp has
+        // left the chunk before in it (two chunks back).
+        if (threadIdx.x == 0 && k + TILE_AHEAD < nchunks) {
+            const int m = k + TILE_AHEAD - TILE_STAGES;
+            if (m >= 0) mbar_wait(empty0 + 8 * (m % TILE_STAGES), (m / TILE_STAGES) & 1);
+            issue(k + TILE_AHEAD);
+        }
+        __syncwarp();
+        mbar_wait(full0 + 8 * (k % TILE_STAGES), (k / TILE_STAGES) & 1);
+        const int32_t* sidx = stage_idx(k);
+        const float* sval = reinterpret_cast<const float*>(sidx + TILE_STAGE * stride);
+        const long long cs = a0 + static_cast<long long>(k) * TILE_STAGE;
+        const long long ce = min(cs + TILE_STAGE, hi4);
+        for (long long base = cs; base < ce; base += TILE_GROUPS * TILE_U) {
+            // Loads of the U steps, all issued before any is used: the
+            // staged entry (clamped into the slice), then the factor rows it
+            // names.
+            int row[TILE_U];
+            float p[TILE_U][4];
+#pragma unroll
+            for (int u = 0; u < TILE_U; ++u) {
+                const long long n = base + u * TILE_GROUPS + g;
+                const int o = static_cast<int>((n < hi ? n : hi - 1) - cs);
+                const int32_t* e = sidx + o * stride;
+                row[u] = e[mode];
+                const float val = sval[o];
+                int ix[MO];
+#pragma unroll
+                for (int j = 0; j < MO; ++j) ix[j] = j < nother ? e[fcol[j]] : 0;
+#pragma unroll
+                for (int c = 0; c < 4; ++c) p[u][c] = val;
+#pragma unroll
+                for (int j = 0; j < MO; ++j) {
+                    if (j >= nother) break;
+                    float x[4];
+                    load4<VEC>(f[j] + static_cast<long long>(ix[j]) * rank, gather_cols, x);
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) p[u][c] *= x[c];
+                }
+            }
+            int key[TILE_U], seg[TILE_U], turns[TILE_U];
+            bool tail[TILE_U];
+            if (min(base + TILE_GROUPS * TILE_U - 1, hi - 1) < blk_end) {
+                // The common case: the U steps lie in block cur_blk.
+#pragma unroll
+                for (int u = 0; u < TILE_U; ++u) {
+                    const long long n = base + u * TILE_GROUPS + g;
+                    key[u] = n >= v_lo && n < v_hi ? row[u] - cur_blk * rpb : -1;
+                }
+                tile_runs<TILE_U>(key, p, tail, seg, turns);
+#pragma unroll
+                for (int u = 0; u < TILE_U; ++u) commit(key[u], p[u], tail[u], seg[u], turns[u]);
+                continue;
+            }
+#pragma unroll
+            for (int u = 0; u < TILE_U; ++u) {
+                const long long sb = base + u * TILE_GROUPS;
+                if (sb >= hi) break;
+                const long long n = sb + g;
+                const long long last = min(sb + TILE_GROUPS - 1, hi - 1);
+                // One round per block the step touches.
+                for (;;) {
+                    int k1[1] = {n >= v_lo && n < v_hi ? row[u] - cur_blk * rpb : -1};
+                    float v1[1][4] = {{p[u][0], p[u][1], p[u][2], p[u][3]}};
+                    bool t1[1];
+                    int s1[1], n1[1];
+                    tile_runs<1>(k1, v1, t1, s1, n1);
+                    commit(k1[0], v1[0], t1[0], s1[0], n1[0]);
+                    if (last < blk_end) break;
+                    flush();
+                    next_block();
+                }
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * (k % TILE_STAGES));
     }
-    if (lane == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
-        carry_blk[2 * w] = carried0;
-        carry_blk[2 * w + 1] = carried1;
+    flush();  // the slice's last block
+    if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+        carry_blk[2 * cta] = carried0;
+        carry_blk[2 * cta + 1] = carried1;
     }
 }
 
@@ -843,16 +1007,16 @@ __global__ void __launch_bounds__(TILE_MAX_WARPS * 32) mttkrp_tile_kernel(
 __global__ void __launch_bounds__(THREADS) mttkrp_tile_carry_kernel(
     const float* __restrict__ carry_val, const int32_t* __restrict__ carry_blk,
     const int64_t* __restrict__ block_start, float* __restrict__ out, long long nnz_pad,
-    int num_warps, int batch, int rank, int i_out, int rpb, int parts)
+    int slices, int batch, int rank, int i_out, int rpb, int parts)
 {
     const int b = blockIdx.x / parts;
     const int part = blockIdx.x % parts;
     const int bz = blockIdx.y;
-    // The slice that holds entry n: the last v with nnz_pad * v / W <= n.
+    // The slice that holds entry n: the last v with nnz_pad * v / slices <= n.
     auto slice_of = [&](long long n) {
-        long long v = n * num_warps / nnz_pad;
-        while (v + 1 < num_warps && nnz_pad * (v + 1) / num_warps <= n) ++v;
-        while (v > 0 && nnz_pad * v / num_warps > n) --v;
+        long long v = n * slices / nnz_pad;
+        while (v + 1 < slices && nnz_pad * (v + 1) / slices <= n) ++v;
+        while (v > 0 && nnz_pad * v / slices > n) --v;
         return v;
     };
     const long long wa = slice_of(block_start[b]);
@@ -878,72 +1042,60 @@ __global__ void __launch_bounds__(THREADS) mttkrp_tile_carry_kernel(
 
 #define TILE_KERNEL(T, NO, VEC) mttkrp_tile_kernel<T, NO, VEC>
 
-// The warps per CTA (1..8) that put the most warps on an SM, and the CTAs of
-// the persistent grid at that size.
+// CTAs per SM of the tile kernel at this block size and shared memory.
 template <typename T, int NO, bool VEC>
-static cudaError_t tile_grid_for(int rpb, int* ctas, int* warps)
+static cudaError_t tile_per_sm(int threads, size_t smem, int* per_sm, int* sms)
 {
-    int dev = 0, sms = 0, optin = 0;
+    int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    const size_t per_warp = static_cast<size_t>(rpb) * CHUNK * sizeof(float);
-    int best = 0;
-    for (int wpc = 1; wpc <= TILE_MAX_WARPS; ++wpc) {
-        const size_t smem = per_warp * wpc;
-        if (smem > static_cast<size_t>(optin)) break;
         err = cudaFuncSetAttribute(TILE_KERNEL(T, NO, VEC),
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
-        int per_sm = 0;
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, TILE_KERNEL(T, NO, VEC),
-                                                                wpc * 32, smem);
-        if (err != cudaSuccess) return err;
-        if (per_sm * wpc >= best && per_sm > 0) {
-            best = per_sm * wpc;
-            *warps = wpc;
-            *ctas = per_sm * sms;
-        }
-    }
-    return best > 0 ? cudaSuccess : cudaErrorInvalidValue;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, TILE_KERNEL(T, NO, VEC),
+                                                            threads, smem);
+    if (err == cudaSuccess && *per_sm < 1) err = cudaErrorInvalidConfiguration;
+    return err;
 }
 
 template <typename T, int NO, bool VEC>
-static cudaError_t tile_launch(const LaunchArgs& a, cudaStream_t stream)
+static cudaError_t tile_launch(const LaunchArgs& a, int b_pass, cudaStream_t stream)
 {
-    const size_t smem = static_cast<size_t>(a.rows_per_block) * CHUNK * sizeof(float) * a.warps;
+    const size_t smem = tile_smem_bytes(a.nmodes, a.rows_per_block, b_pass);
     cudaError_t err = cudaFuncSetAttribute(TILE_KERNEL(T, NO, VEC),
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid(a.ctas, (a.rank + CHUNK - 1) / CHUNK, a.batch);
-    TILE_KERNEL(T, NO, VEC)<<<grid, a.warps * 32, smem, stream>>>(
+    const dim3 grid(a.ctas, (a.rank + CHUNK - 1) / CHUNK, (a.batch + b_pass - 1) / b_pass);
+    TILE_KERNEL(T, NO, VEC)<<<grid, b_pass * TILE_SPLIT * 32, smem, stream>>>(
         a.indices, a.values, a.block_start, a.block_real_end, a.fac, a.out, a.carry_val,
         a.carry_row, a.nnz_pad, a.num_blocks, a.nmodes, a.mode, a.rank, a.batch, a.i_out,
-        a.rows_per_block);
+        a.rows_per_block, b_pass);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int parts = (a.rows_per_block * a.rank + THREADS - 1) / THREADS;
     mttkrp_tile_carry_kernel<<<dim3(a.num_blocks * parts, a.batch), THREADS, 0, stream>>>(
-        a.carry_val, a.carry_row, a.block_start, a.out, a.nnz_pad, a.ctas * a.warps, a.batch,
-        a.rank, a.i_out, a.rows_per_block, parts);
+        a.carry_val, a.carry_row, a.block_start, a.out, a.nnz_pad, a.ctas, a.batch, a.rank,
+        a.i_out, a.rows_per_block, parts);
     return cudaGetLastError();
 }
 
-// With a null `a`, the grid of the kernel the shape takes; else its launch.
+// With a null `a`, the CTAs per SM of the kernel the shape takes; else its
+// launch.
 template <typename T>
-static cudaError_t tile_dispatch(const LaunchArgs* a, int nmodes, int rpb, int vec,
-                                 cudaStream_t s, int* ctas, int* warps)
+static cudaError_t tile_dispatch(const LaunchArgs* a, int nmodes, int rpb, int b_pass, int vec,
+                                 cudaStream_t s, int* per_sm, int* sms)
 {
+    const int threads = b_pass * TILE_SPLIT * 32;
+    const size_t smem = tile_smem_bytes(nmodes, rpb, b_pass);
     if (nmodes == 3) {
-        if (!a) return tile_grid_for<T, 2, true>(rpb, ctas, warps);
-        return vec ? tile_launch<T, 2, true>(*a, s) : tile_launch<T, 2, false>(*a, s);
+        if (!a) return tile_per_sm<T, 2, true>(threads, smem, per_sm, sms);
+        return vec ? tile_launch<T, 2, true>(*a, b_pass, s) : tile_launch<T, 2, false>(*a, b_pass, s);
     }
-    if (!a) return tile_grid_for<T, 0, false>(rpb, ctas, warps);
-    return tile_launch<T, 0, false>(*a, s);
+    if (!a) return tile_per_sm<T, 0, false>(threads, smem, per_sm, sms);
+    return tile_launch<T, 0, false>(*a, b_pass, s);
 }
 
 extern "C" {
@@ -992,41 +1144,57 @@ int mttkrp_split_launch(const int32_t* indices, const float* values,
     return static_cast<int>(err);
 }
 
-// The tile mode's grid on the current device for this shape: CTAs and warps
-// per CTA (one slice a warp).  Returns the cudaError_t.
-int mttkrp_tiles_grid(int nmodes, int rows_per_block, int factor_is_bf16, int* ctas, int* warps)
+// The tile mode's CTA on the current device for this shape: restarts a pass
+// (0, with the rest 0, when a single restart's tile does not fit shared
+// memory), warps and bytes of dynamic shared memory per CTA, CTAs per SM and
+// the SM count.  Returns the cudaError_t.
+int mttkrp_tiles_grid(int nmodes, int rows_per_block, int batch, int factor_is_bf16,
+                      int* b_pass, int* warps, int* smem_bytes, int* per_sm, int* sms)
 {
-    if (nmodes < 1 || nmodes > MAX_MODES || rows_per_block < 1 || rows_per_block > (1 << 20))
+    if (nmodes < 1 || nmodes > MAX_MODES || rows_per_block < 1 || rows_per_block > (1 << 20) ||
+        batch < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t err = factor_is_bf16
-        ? tile_dispatch<__nv_bfloat16>(nullptr, nmodes, rows_per_block, 0, nullptr, ctas, warps)
-        : tile_dispatch<float>(nullptr, nmodes, rows_per_block, 0, nullptr, ctas, warps);
+    *warps = *smem_bytes = *per_sm = *sms = 0;
+    cudaError_t err = tile_b_pass(nmodes, rows_per_block, batch, b_pass);
+    if (err != cudaSuccess || *b_pass == 0) return static_cast<int>(err);
+    *warps = *b_pass * TILE_SPLIT;
+    *smem_bytes = static_cast<int>(tile_smem_bytes(nmodes, rows_per_block, *b_pass));
+    err = factor_is_bf16
+        ? tile_dispatch<__nv_bfloat16>(nullptr, nmodes, rows_per_block, *b_pass, 0, nullptr,
+                                       per_sm, sms)
+        : tile_dispatch<float>(nullptr, nmodes, rows_per_block, *b_pass, 0, nullptr, per_sm, sms);
     return static_cast<int>(err);
 }
 
 // Launches the tile mode and its carry pass on `stream`; returns the
 // cudaError_t of the launches (0 = queued).  As mttkrp_split_launch, but
-// carry_val holds ctas*warps*2*batch*rows_per_block*rank floats and
-// carry_blk ctas*warps*2 ints; any restart count (one per pass).
+// `ctas` CTAs of mttkrp_tiles_grid's shape, indices and values 16-byte
+// aligned, carry_val holding ctas*2*batch*rows_per_block*rank floats and
+// carry_blk ctas*2 ints.
 int mttkrp_tiles_launch(const int32_t* indices, const float* values,
                         const int64_t* block_start, const int64_t* block_real_end,
                         const void* const* factor_ptrs, const int64_t* factor_batch_strides,
                         float* out, float* carry_val, int32_t* carry_blk, long long nnz_pad,
                         int num_blocks, int nmodes, int mode, int rank, int batch, int i_out,
-                        int rows_per_block, int ctas, int warps, int factor_is_bf16, int vec,
-                        void* stream)
+                        int rows_per_block, int ctas, int factor_is_bf16, int vec, void* stream)
 {
     if (nmodes < 1 || nmodes > MAX_MODES || mode < 0 || mode >= nmodes || rank < 1 ||
         batch < 1 || i_out < 1 || num_blocks < 1 || nnz_pad < 1 || ctas < 1 ||
-        warps < 1 || warps > TILE_MAX_WARPS || rows_per_block < 1 || rows_per_block > (1 << 20) ||
+        rows_per_block < 1 || rows_per_block > (1 << 20) ||
         (rank + CHUNK - 1) / CHUNK > 65535 || batch > 65535 ||
+        reinterpret_cast<uintptr_t>(indices) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(values) % 16 != 0 ||
         static_cast<long long>(num_blocks) *
                 ((static_cast<long long>(rows_per_block) * rank + THREADS - 1) / THREADS) >
             2147483647LL)
         return static_cast<int>(cudaErrorInvalidValue);
+    int b_pass = 0;
+    cudaError_t err = tile_b_pass(nmodes, rows_per_block, batch, &b_pass);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (b_pass == 0) return static_cast<int>(cudaErrorInvalidValue);
     LaunchArgs a{indices, values, block_start, block_real_end, FactorArgs{}, out, carry_val,
                  carry_blk, nnz_pad, num_blocks, nmodes, mode, rank, batch, i_out, ctas,
-                 rows_per_block, warps};
+                 rows_per_block};
     for (int k = 0, j = 0; k < nmodes; ++k) {
         if (k == mode) continue;
         a.fac.ptr[j] = factor_ptrs[k];
@@ -1035,9 +1203,9 @@ int mttkrp_tiles_launch(const int32_t* indices, const float* values,
         ++j;
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = factor_is_bf16
-        ? tile_dispatch<__nv_bfloat16>(&a, nmodes, rows_per_block, vec, s, nullptr, nullptr)
-        : tile_dispatch<float>(&a, nmodes, rows_per_block, vec, s, nullptr, nullptr);
+    err = factor_is_bf16
+        ? tile_dispatch<__nv_bfloat16>(&a, nmodes, rows_per_block, b_pass, vec, s, nullptr, nullptr)
+        : tile_dispatch<float>(&a, nmodes, rows_per_block, b_pass, vec, s, nullptr, nullptr);
     return static_cast<int>(err);
 }
 

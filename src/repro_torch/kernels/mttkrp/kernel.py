@@ -11,9 +11,12 @@ plan buffers and compute the same function:
     (``SPLIT_MODES``), picked from the plan buffers' ``rows_contiguous``
     flag: ``"rows"`` sums each output row's run in registers and needs
     each row's nonzeros to be one run of the stream (the ``lex``,
-    ``secondary-sort`` and ``degree`` orderings); ``"tiles"`` accumulates
-    each output block in a shared-memory tile per warp and takes any plan
-    (the ``blocked`` ordering's);
+    ``secondary-sort`` and ``degree`` orderings); ``"tiles"`` takes any
+    plan (the ``blocked`` ordering's): each CTA, not each warp, takes a
+    slice of the stream, stages its indices and values in shared memory
+    once, and accumulates the output block it is in as a shared-memory
+    tile of up to four restarts, each warp half the columns of one
+    restart (``tile_grid``);
   * ``"block"`` (``csrc/mttkrp.cu``), asked for by name only: one CTA per
     plan output block, kept to time the two in one run.
 
@@ -31,7 +34,7 @@ split variant's carry pass is part of its call),
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING, Sequence
+from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import torch
 
@@ -99,10 +102,10 @@ def _library(variant: str):
         lib.mttkrp_split_error_string.argtypes = [ctypes.c_int]
         lib.mttkrp_split_error_string.restype = ctypes.c_char_p
         lib.mttkrp_tiles_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll,
-                                            i, i, i, i, i, i, i, i, i, i, i, p]
+                                            i, i, i, i, i, i, i, i, i, i, p]
         lib.mttkrp_tiles_launch.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.mttkrp_tiles_grid.argtypes = [i, i, i, ip, ip]
+        lib.mttkrp_tiles_grid.argtypes = [i, i, i, i, ip, ip, ip, ip, ip]
         lib.mttkrp_tiles_grid.restype = ctypes.c_int
     return lib
 
@@ -135,32 +138,46 @@ def split_slices(nmodes: int, batch: int, dtype: torch.dtype, device: torch.devi
     return _CTAS[key] * SPLIT_WARPS_PER_CTA
 
 
-_TILE_GRID: dict[tuple, tuple[int, int]] = {}
+class TileGrid(NamedTuple):
+    """The tile mode's grid for one shape on one card, as the kernel's
+    source computes it (``mttkrp_tiles_grid`` in csrc/mttkrp_split.cu)."""
+
+    ctas: int  # CTAs of the persistent grid, one slice of the stream each
+    warps: int  # warps per CTA: two per restart of a pass, a column part each
+    b_pass: int  # restarts per pass over the stream
+    smem_bytes: int  # dynamic shared memory per CTA: tile, staging ring, barriers
+    warps_per_sm: int  # resident warps per SM (the occupancy API's CTAs per SM x warps)
 
 
-def tile_grid(nmodes: int, rows_per_block: int, dtype: torch.dtype,
-              device: torch.device) -> tuple[int, int]:
-    """The split kernel's tile-mode grid on ``device`` for this shape:
-    ``(ctas, warps_per_cta)``, the warps per CTA (at most 8, each with a
-    ``rows_per_block x 16`` float32 tile) that put the most warps on an SM.
-    ``ctas * warps_per_cta`` is its slice count."""
-    if not 1 <= rows_per_block * SPLIT_RANK_CHUNK * 4 <= SHARED_MEMORY_LIMIT:
-        raise ValueError(
-            f"rows_per_block={rows_per_block}: the tile mode's tile of "
-            f"{rows_per_block} x {SPLIT_RANK_CHUNK} float32 does not fit "
-            f"{SHARED_MEMORY_LIMIT} bytes of shared memory"
-        )
+_TILE_GRID: dict[tuple, TileGrid] = {}
+
+
+def tile_grid(nmodes: int, rows_per_block: int, dtype: torch.dtype, device: torch.device, *,
+              batch: int = 1) -> TileGrid:
+    """The split kernel's tile-mode grid on ``device`` for this shape: the
+    most restarts a pass (at most 4 and at most ``batch``) whose tiles of
+    ``rows_per_block x 16`` float32 fit shared memory beside the staging
+    ring, and as many CTAs as the occupancy API fits on the card's SMs.
+    ``ctas`` is the number of slices of the stream.  Raises ``ValueError``
+    when a single restart's tile does not fit."""
     device = torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, nmodes == 3, rows_per_block, dtype)
+    key = (index, nmodes, rows_per_block, batch, dtype)
     if key not in _TILE_GRID:
-        ctas, warps = ctypes.c_int(0), ctypes.c_int(0)
+        b_pass, warps, smem, per_sm, sms = (ctypes.c_int(0) for _ in range(5))
         with torch.cuda.device(device):
             err = _library("split").mttkrp_tiles_grid(
-                nmodes, rows_per_block, _FACTOR_DTYPES[dtype], ctypes.byref(ctas),
-                ctypes.byref(warps))
+                nmodes, rows_per_block, batch, _FACTOR_DTYPES[dtype], ctypes.byref(b_pass),
+                ctypes.byref(warps), ctypes.byref(smem), ctypes.byref(per_sm), ctypes.byref(sms))
         _raise_on(err, "split")
-        _TILE_GRID[key] = (ctas.value, warps.value)
+        if b_pass.value == 0:
+            raise ValueError(
+                f"rows_per_block={rows_per_block}: the tile mode's tile of "
+                f"{rows_per_block} x {SPLIT_RANK_CHUNK} float32 and its staging ring do not "
+                f"fit the card's shared memory"
+            )
+        _TILE_GRID[key] = TileGrid(per_sm.value * sms.value, warps.value, b_pass.value,
+                                   smem.value, per_sm.value * warps.value)
     return _TILE_GRID[key]
 
 
@@ -268,7 +285,8 @@ def mttkrp_cuda(
         chunk = rank_chunk(rank, rows_per_block)
         passes = (batch, -(-rank // chunk))
     elif split_mode == "tiles":
-        passes = (batch, -(-rank // SPLIT_RANK_CHUNK))
+        grid = tile_grid(nmodes, rows_per_block, dtype, device, batch=batch)
+        passes = (-(-batch // grid.b_pass), -(-rank // SPLIT_RANK_CHUNK))
     else:
         passes = (-(-batch // SPLIT_BATCH_CHUNK), -(-rank // SPLIT_RANK_CHUNK))
     if max(passes) > MAX_GRID_YZ:
@@ -302,14 +320,15 @@ def mttkrp_cuda(
                 stream,
             )
         elif split_mode == "tiles":
-            ctas, warps = tile_grid(nmodes, rows_per_block, dtype, device)
-            slices = ctas * warps
-            # Carries: the tiles of each slice's first and last block.
-            carry_val = torch.empty((slices, 2, batch, rows_per_block, rank),
+            # Carries: the tiles of each slice's (CTA's) first and last block.
+            carry_val = torch.empty((grid.ctas, 2, batch, rows_per_block, rank),
                                     dtype=torch.float32, device=device)
-            carry_blk = torch.empty((slices, 2), dtype=torch.int32, device=device)
+            carry_blk = torch.empty((grid.ctas, 2), dtype=torch.int32, device=device)
             align = 16 if dtype == torch.float32 else 8
             vec = rank % 4 == 0 and all(f.data_ptr() % align == 0 for f in factors)
+            if bufs.indices.data_ptr() % 16 or bufs.values.data_ptr() % 16:
+                raise ValueError("the tile mode stages the stream by bulk copies: the plan's "
+                                 "indices and values must be 16-byte aligned")
             err = _library("split").mttkrp_tiles_launch(
                 bufs.indices.data_ptr(),
                 bufs.values.data_ptr(),
@@ -328,8 +347,7 @@ def mttkrp_cuda(
                 batch,
                 i_out,
                 rows_per_block,
-                ctas,
-                warps,
+                grid.ctas,
                 _FACTOR_DTYPES[dtype],
                 int(vec),
                 stream,

@@ -34,15 +34,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _factors(shape, rank, device, *, batch=None, dtype=torch.float32, seed=0):
+def _factors(shape, rank, device, *, batch=None, dtype=torch.float32, seed=0, offset=0):
+    """Factors from a seed; with ``offset``, each starts ``offset`` elements
+    into a buffer of its own, so that its address is not vector-aligned."""
     rng = np.random.default_rng(seed)
     lead = () if batch is None else (batch,)
-    return [
-        torch.from_numpy(rng.standard_normal(lead + (s, rank)).astype(np.float32))
-        .to(device=device, dtype=dtype)
-        .contiguous()
-        for s in shape
-    ]
+    out = []
+    for s in shape:
+        f = torch.from_numpy(rng.standard_normal(lead + (s, rank)).astype(np.float32))
+        buf = torch.empty(f.numel() + offset, dtype=dtype, device=device)
+        out.append(buf[offset:].view(f.shape).copy_(f))
+    return out
 
 
 def _compare(t, rank, device, *, tile_nnz=64, rows_per_block=32, batch=None,
@@ -222,12 +224,12 @@ ORDERINGS = ("lex", "secondary-sort", "degree", "blocked")
 
 
 def _ordered_check(t, rank, device, ordering, *, tile_nnz, rows_per_block, batch, dtype,
-                   split_mode=None):
+                   split_mode=None, offset=0):
     """Each mode's plan in ``ordering`` through the split kernel (in the mode
     the plan picks, or ``split_mode``) against the plain version, and a
     bit-for-bit repeat; returns the modes the launches took."""
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
-    facs = _factors(t.shape, rank, device, batch=batch, dtype=dtype, seed=t.nnz)
+    facs = _factors(t.shape, rank, device, batch=batch, dtype=dtype, seed=t.nnz, offset=offset)
     taken = []
     for mode in range(t.nmodes):
         plan = build_mttkrp_plan(t, mode, tile_nnz=tile_nnz, rows_per_block=rows_per_block,
@@ -268,37 +270,60 @@ def _tile_edges(rng):
                         (200, 300, 200))
 
 
-# name -> (tensor maker, rank, tile_nnz, rows_per_block)
+# name -> (tensor maker, rank, tile_nnz, rows_per_block, factor offset in elements)
 TILE_CASES = {
-    "block shared by many slices, empty blocks": (_tile_edges, 16, 8, 16),
-    "slice boundary in padding": (_padding_heavy, 16, 256, 16),
-    "hot row": (_hot_row, 16, 256, 256),
-    "fewer nonzeros than slices": (_few, 16, 32, 16),
-    "rank 13": (_moderate, 13, 128, 32),
-    "rank 40": (_moderate, 40, 64, 512),
+    "block shared by many slices, empty blocks": (_tile_edges, 16, 8, 16, 0),
+    "slice boundary in padding": (_padding_heavy, 16, 256, 16, 0),
+    "hot row": (_hot_row, 16, 256, 256, 0),
+    "fewer nonzeros than slices": (_few, 16, 32, 16, 0),
+    "rank 13": (_moderate, 13, 128, 32, 0),
+    "rank 40": (_moderate, 40, 64, 512, 0),
     "4 modes": (lambda rng: random_sparse_tensor((60, 50, 40, 30), 20_000, seed=4, zipf_a=0.7),
-                16, 128, 32),
+                16, 128, 32, 0),
+    "rank 20 (a ragged column pass)": (_moderate, 20, 128, 32, 0),
+    "rank 8 (one column part)": (_moderate, 8, 128, 32, 0),
+    "unaligned factors (scalar loads)": (_moderate, 16, 128, 32, 1),
+    "rows_per_block 1024 (3 restarts a pass)": (_moderate, 16, 128, 1024, 0),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("batch", [None, 4], ids=["B1", "B4"])
+@pytest.mark.parametrize("batch", [None, 3, 4, 5], ids=["B1", "B3", "B4", "B5"])
 @pytest.mark.parametrize("name", list(TILE_CASES))
 def test_tile_mode_partition_edges(cuda, name, batch, dtype):
-    make, rank, tile_nnz, rows_per_block = TILE_CASES[name]
+    make, rank, tile_nnz, rows_per_block, offset = TILE_CASES[name]
     t = make(np.random.default_rng(8))
+    grid = tkernel.tile_grid(t.nmodes, rows_per_block, dtype, cuda, batch=batch or 1)
     if name.startswith("block shared"):  # the premise, on mode 0's blocked plan
         plan = build_mttkrp_plan(t, 0, tile_nnz=tile_nnz, rows_per_block=rows_per_block,
                                  ordering="blocked", device=cuda)
-        ctas, warps = tkernel.tile_grid(t.nmodes, rows_per_block, dtype, cuda)
         start = tops.block_nnz_start(plan)
-        bounds = slice_bounds(plan.nnz_pad, ctas * warps)
+        bounds = slice_bounds(plan.nnz_pad, grid.ctas)  # one slice per CTA
         blk = np.searchsorted(start, bounds[:-1], side="right") - 1
         assert np.bincount(blk).max() > 2
         assert (tops.block_real_end(plan) == start[:-1]).any()
+    if name.startswith("rows_per_block 1024") and (batch or 1) > 3:
+        assert grid.b_pass == 3
     taken = _ordered_check(t, rank, cuda, "blocked", tile_nnz=tile_nnz,
-                           rows_per_block=rows_per_block, batch=batch, dtype=dtype)
+                           rows_per_block=rows_per_block, batch=batch, dtype=dtype,
+                           offset=offset)
     assert set(taken) == {"tiles"}
+
+
+def test_tile_grid_on_the_card(cuda):
+    """Two warps per restart of a pass, as many restarts as fit (at most 4),
+    a tile of rows_per_block x 16 float32 per restart beside a staging ring
+    of 4 x 64 entries of 3 indices and a value and its 8 barriers, at least
+    as many CTAs as SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ring = 4 * 64 * 4 * 4 + 8 * 8
+    for batch, rpb, b_pass in [(1, 256, 1), (4, 256, 4), (3, 256, 3), (5, 256, 4),
+                               (4, 1024, 3)]:
+        grid = tkernel.tile_grid(3, rpb, torch.float32, cuda, batch=batch)
+        assert (grid.warps, grid.b_pass) == (2 * b_pass, b_pass), (batch, rpb)
+        assert grid.smem_bytes == b_pass * rpb * 16 * 4 + ring, (batch, rpb)
+        assert grid.ctas >= sms and grid.ctas % sms == 0
+        assert grid.warps_per_sm == grid.ctas // sms * grid.warps
 
 
 def test_row_run_mode_refuses_a_blocked_plan_on_the_card(cuda):
@@ -311,3 +336,8 @@ def test_row_run_mode_refuses_a_blocked_plan_on_the_card(cuda):
         tkernel.mttkrp_cuda(bufs, facs, 0, 600, split_mode="rows")
     with pytest.raises(ValueError, match="shared memory"):
         tkernel.tile_grid(3, 4096, torch.float32, cuda)
+    # The tile mode's bulk copies need 16-byte aligned stream buffers.
+    n = bufs.values.numel()
+    shifted = torch.empty(n + 1, dtype=torch.float32, device=cuda)[1:].copy_(bufs.values)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tkernel.mttkrp_cuda(bufs._replace(values=shifted), facs, 0, 600)

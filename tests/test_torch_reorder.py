@@ -290,36 +290,50 @@ def test_row_run_mode_stores_blocked_rows_more_than_once_and_is_refused():
         kmod.mttkrp_cuda(lex, facs, 0, t.shape[0], variant="block", split_mode="tiles")
 
 
+def _tiles_ok(bufs, facs, mode, i_out, replay):
+    """Every output element stored exactly once, and within MTTKRP_TOL of
+    the sum of absolute terms of the plain version."""
+    want = mttkrp_plan_ref(bufs, facs, mode, i_out)
+    diff = (replay.out - want).abs()
+    return (int(replay.stores.min()) == int(replay.stores.max()) == 1
+            and bool((diff <= MTTKRP_TOL * _scale(bufs, facs, mode, i_out) + 1e-30).all()))
+
+
 @pytest.mark.parametrize("ordering", ORDERINGS)
 @pytest.mark.parametrize("batch", [None, 3])
 def test_tile_mode_stores_every_row_once(ordering, batch):
+    """37 slices, one and four restarts a pass (at B = 3 the one pass of
+    four is ragged)."""
     t, _ = _pair((600, 500, 700), 40_000, 1, zipf_a=0.8)
     facs = [torch.from_numpy(f) for f in _factors(t.shape, 16, seed=1, batch=batch)]
     for mode in range(3):
         bufs = _plan_bufs(t, mode, ordering, 32, 64)
         i_out = t.shape[mode]
-        out, stores, _ = partition.emulate_tiles(bufs, facs, mode, i_out, 37)
-        assert int(stores.min()) == int(stores.max()) == 1
-        want = mttkrp_plan_ref(bufs, facs, mode, i_out)
-        diff = (out - want).abs()
-        assert bool((diff <= MTTKRP_TOL * _scale(bufs, facs, mode, i_out) + 1e-30).all())
+        for b_pass in (1, 4):
+            replay = partition.emulate_tiles(bufs, facs, mode, i_out, 37, b_pass)
+            assert replay.stores.shape == replay.out.shape[:-1]
+            assert _tiles_ok(bufs, facs, mode, i_out, replay), (mode, b_pass)
         if ordering != "blocked":  # the row-run mode is right for these
+            want = mttkrp_plan_ref(bufs, facs, mode, i_out)
             got, runs, _ = partition.emulate_split(bufs, facs, mode, i_out, 37)
             assert int(runs.max()) == 1
             assert bool(((got - want).abs() <= MTTKRP_TOL * _scale(bufs, facs, mode, i_out)
                          + 1e-30).all())
 
 
-def test_tile_mode_partition_edges():
-    """Slices that start and end inside one block, a block shared by more
-    than two slices, empty blocks, and slice boundaries inside padding."""
-    rng = np.random.default_rng(9)
-    rows = np.concatenate([rng.integers(0, 16, 3000),  # block 0: shared by many slices
+def _edges_tensor(rng, n0=3000):
+    rows = np.concatenate([rng.integers(0, 16, n0),  # block 0: shared by many slices
                            rng.integers(64, 80, 40),  # blocks 1-3 empty, block 4 small
                            rng.integers(160, 176, 5)])  # a block of mostly padding
     idx = np.stack([rows, rng.integers(0, 30, rows.size), rng.integers(0, 20, rows.size)], 1)
-    t = tst.SparseTensor(idx.astype(np.int32), rng.standard_normal(rows.size).astype(np.float32),
-                         (200, 30, 20))
+    return tst.SparseTensor(idx.astype(np.int32),
+                            rng.standard_normal(rows.size).astype(np.float32), (200, 30, 20))
+
+
+def test_tile_mode_partition_edges():
+    """Slices that start and end inside one block, a block shared by more
+    than two slices, empty blocks, and slice boundaries inside padding."""
+    t = _edges_tensor(np.random.default_rng(9))
     facs = [torch.from_numpy(f) for f in _factors(t.shape, 16, seed=2)]
     bufs = _plan_bufs(t, 0, "blocked", 8, 16)
     start = bufs.block_nnz_start.numpy()
@@ -333,18 +347,70 @@ def test_tile_mode_partition_edges():
         if slices >= 64:
             assert inner.any() and per_block.max() > 2 and in_padding.any()
         assert (real_end == start[:-1]).any()  # empty blocks (padding only)
-        out, stores, carries = partition.emulate_tiles(bufs, facs, 0, t.shape[0], slices)
-        assert int(stores.min()) == int(stores.max()) == 1
-        want = mttkrp_plan_ref(bufs, facs, 0, t.shape[0])
-        assert bool(((out - want).abs() <= MTTKRP_TOL * _scale(bufs, facs, 0, t.shape[0])
-                     + 1e-30).all())
-        assert bool((out[16:64] == 0).all())  # empty blocks are stored as zeros
+        replay = partition.emulate_tiles(bufs, facs, 0, t.shape[0], slices)
+        assert _tiles_ok(bufs, facs, 0, t.shape[0], replay)
+        assert bool((replay.out[16:64] == 0).all())  # empty blocks are stored as zeros
         if slices >= 64:
-            assert (carries[:, 0] == 0).sum() > 2  # block 0's carry tiles from many slices
+            assert (replay.carry_blocks[:, 0] == 0).sum() > 2  # block 0's carries, many slices
     # Fewer nonzeros than slices: empty slices hold nothing.
-    few = tst.SparseTensor(idx[:3].astype(np.int32), np.ones(3, np.float32), (200, 30, 20))
+    few = tst.SparseTensor(t.indices[:3], np.ones(3, np.float32), (200, 30, 20))
     fb = _plan_bufs(few, 0, "blocked", 8, 16)
-    out, stores, carries = partition.emulate_tiles(fb, facs, 0, 200, 1000)
-    assert int(stores.min()) == int(stores.max()) == 1
-    np.testing.assert_allclose(out.numpy(), mttkrp_plan_ref(fb, facs, 0, 200).numpy(),
+    replay = partition.emulate_tiles(fb, facs, 0, 200, 1000)
+    assert int(replay.stores.min()) == int(replay.stores.max()) == 1
+    np.testing.assert_allclose(replay.out.numpy(), mttkrp_plan_ref(fb, facs, 0, 200).numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+def _band_cells(rng):
+    """Block 0's 16 rows over 256 cells of input bands (32 x 8 bands of 128
+    rows), two or three nonzeros in each: a step's 8 entries span several
+    cells, its rows descend at each band change, and rows of the band
+    before come back after it."""
+    rows = rng.integers(0, 16, 600)
+    idx = np.stack([rows, rng.integers(0, 4096, 600), rng.integers(0, 1024, 600)], 1)
+    return tst.SparseTensor(idx.astype(np.int32), rng.standard_normal(600).astype(np.float32),
+                            (16, 4096, 1024))
+
+
+def _boundaries_in_padding(bufs, bounds):
+    start, real_end = bufs.block_nnz_start.numpy(), bufs.block_real_end.numpy()
+    inner = bounds[1:-1]
+    blk = np.searchsorted(start, inner, side="right") - 1
+    return bool(((inner > real_end[blk]) & (inner < start[blk + 1])).any())
+
+
+# name -> (tensor maker, rows_per_block, tile_nnz, slices, batch, b_pass, premise)
+TILE_REPLAY_CASES = {
+    "a row repeated among one warp step's entries": (
+        _band_cells, 16, 8, 3, None, 1, lambda bufs, bounds, r: r.repeated_rows > 0
+        and r.max_turns >= 2),
+    "slices that start or end in padding": (
+        lambda rng: _edges_tensor(rng), 16, 8, 64, None, 1,
+        lambda bufs, bounds, r: _boundaries_in_padding(bufs, bounds)),
+    "fewer nonzeros than slices": (
+        lambda rng: _edges_tensor(rng, 30), 16, 8, 200, None, 1,
+        lambda bufs, bounds, r: int(bufs.values.shape[0]) < 200),
+    "B = 3 with b_pass 4 (a ragged restart group)": (
+        lambda rng: _edges_tensor(rng), 16, 8, 64, 3, 4, lambda bufs, bounds, r: True),
+    # The card's grid takes 3 restarts a pass at 1024 rows a block
+    # (tests/test_torch_kernel_cuda.py::test_tile_grid_on_the_card), so B = 4
+    # runs a pass of 3 and a pass of 1.
+    "fewer than 4 restarts fit one pass (rows_per_block 1024)": (
+        lambda rng: tst.random_sparse_tensor((3000, 60, 50), 20_000, seed=3, zipf_a=0.8),
+        1024, 64, 29, 4, 3, lambda bufs, bounds, r: True),
+}
+
+
+@pytest.mark.parametrize("name", list(TILE_REPLAY_CASES))
+def test_tile_mode_replay_edges(name):
+    make, rpb, tile_nnz, slices, batch, b_pass, premise = TILE_REPLAY_CASES[name]
+    t = make(np.random.default_rng(11))
+    facs = [torch.from_numpy(f) for f in _factors(t.shape, 16, seed=3, batch=batch)]
+    reached = []  # the case's edge, per mode
+    for mode in range(t.nmodes):
+        bufs = _plan_bufs(t, mode, "blocked", tile_nnz, rpb)
+        replay = partition.emulate_tiles(bufs, facs, mode, t.shape[mode], slices, b_pass)
+        bounds = partition.slice_bounds(int(bufs.values.shape[0]), slices)
+        reached.append(premise(bufs, bounds, replay))
+        assert _tiles_ok(bufs, facs, mode, t.shape[mode], replay), mode
+    assert any(reached)
