@@ -111,16 +111,44 @@ Phases, each of which fails the run (exit code 1, no result line):
      and ``controller_gates``: reconciliation within
      CONTROLLER_RECON_TOL, the paper's bands, fewer bank conflicts under
      degree and blocked, sorted on the card) and the ordering benchmark
-     (``run_reorder_sweep(quick=True)``, its acceptance).
+     (``run_reorder_sweep(quick=True)``, its acceptance);
+ 12. the autotuner (``repro_torch.dse.autotune``) on the card.  Right after
+     phase 5, while phase 3's lex plans are memoized, ``FusedCPALS(autotune=
+     Autotuner(...))`` over lex and degree at Table II size (the degree
+     plans built in 3 threads first): the winner, 5 sweeps at it, fits
+     within FUSED_FIT_TOL of phase 3's lex run.  After phase 11: the 9
+     default configs on one request of phase 9's population at ranks 8 and
+     16, every config's per-mode times (each the device time of one call
+     queued behind a sleep, median of 3) and the winner, ``speedup_vs_default``
+     (>= 1), the default's and the winner's kernel alone (50 back to back),
+     no memo miss on a repeat ``tune`` or ``config_for``, the winner's plans
+     through the split kernel against plain (1e-4 of the sum of absolute
+     terms); a ``DecompositionService(autotuner=)`` over 6 requests (every
+     bucket's ``nnz_pad`` a multiple of the tuned tile, every fit within
+     FUSED_FIT_TOL of a standalone ``cp_als_fused(autotune=)`` of the same
+     seed), ``measured_vs_modeled`` for the rank-16 band, and
+     ``run_experiments(ExperimentSpec(autotune=True))`` on NELL-2@0.026, its
+     first calls against plain on the winner's plans.  Each part's split
+     launches are counted and must all be split launches;
+ 13. LM decode serving at full width and depth (internlm2-1.8b, bf16,
+     random weights): a 256-token prompt decoded token by token (B = 1)
+     against ``forward`` at S = 256 (``max |gap| <= 5e-2 max |logit|``), two
+     ``BatchServer`` runs (launch/serve.py's load: 8 requests, 4 slots,
+     ``max_len`` 48; 4 requests of 256-token prompts from ``data/lm_data``,
+     4 slots, ``max_len`` 320), each with requests, tokens, ticks, tokens/s,
+     the median CUDA-event ms per tick, peak memory and a profile of one
+     step by kernel class (device busy, idle share of a tick); every
+     request must be answered; a reused slot's tokens equal to a fresh
+     server's.  The decode path launches no hand-written kernel (checked).
 
 The last three lines are the card's ``name, power.limit``, a JSON object
 with the main paths' kernels' numbers (the split MTTKRP kernel's row-run
 mode with the block kernel's time as ``previous_ms``, its launches over
-the CP-ALS paths of phases 3, 9, 10 and 11, its per-ordering times and
-phase 11's per-tensor times; its
+the CP-ALS paths of phases 3, 9, 10, 11 and 12 under ``launches_by_path``,
+its per-ordering times, phase 11's per-tensor times and phase 12's tunes; its
 tile mode, on the blocked plans of phase 10, with the block kernel's time
 as ``previous_ms``; and the wgmma flash kernel
-with the ``mma.sync`` kernel's), and
+with the ``mma.sync`` kernel's, and phase 13's decode numbers), and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
@@ -178,6 +206,15 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, max_row_error  # no
 from repro_torch.models.attention import project_qkv  # noqa: E402
 from repro_torch.models.model_zoo import init_model, make_prefill_fn  # noqa: E402
 from repro_torch.models.transformer import forward  # noqa: E402
+from repro_torch.dse import (  # noqa: E402
+    DEFAULT_TILE_CONFIG,
+    Autotuner,
+    TuneSpace,
+    measured_vs_modeled,
+)
+from repro_torch.experiments import engine as texp_engine  # noqa: E402
+from repro_torch.models.model_zoo import init_decode_state, make_decode_fn  # noqa: E402
+from repro_torch.runtime.serve_loop import BatchServer, ServeConfig  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     BucketExecutor,
     DecompositionService,
@@ -1554,6 +1591,411 @@ def engine_phase(dev, card: str) -> dict:
                 recon_s=recon_s, gates_s=gates_s, reorder_s=reorder_s)
 
 
+# Phase 12: the autotuner on the card.  The service's band is one request
+# of phase 9's population (NELL-2's dims / 10, Zipf 0.85, ~2M nonzeros);
+# at Table II size the space has one axis, the ordering, since each
+# ordering's plans take ~20 s of host time and ~4 GB of device memory.
+TUNE_TRAFFIC = dataclasses.replace(SERVE_TRAFFIC, n_requests=6, seed=1)
+TUNE_RANKS = (8, 16)
+TABLE2_SPACE = TuneSpace(tile_nnz=(256,), rows_per_block=(256,), orderings=("lex", "degree"))
+TUNE_ENGINE_TENSOR = ("NELL-2", 0.026)
+
+
+def tune_launches(tuner, nmodes: int) -> int:
+    """Split launches of one full tune that measured every cell: a warm-up
+    and ``reps`` samples per (config, mode)."""
+    return len(tuner.space.configs()) * nmodes * (1 + tuner.reps)
+
+
+def autotune_table2_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
+    """Phase 12, Table II part: ``FusedCPALS(autotune=)`` on phase 3's tensor
+    over lex and degree, while phase 3's lex plans are memoized (the degree
+    plans are built here, 3 threads, as phase 10 builds them; phase 10
+    clears them at its second ordering)."""
+    phase(f"phase 12 (Table II part, run after phase 5): FusedCPALS(autotune=) at NELL-2 "
+          f"Table II size, rank {RANK}, space {[c.label for c in TABLE2_SPACE.configs()]}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(tensor.nmodes) as pool:
+        plans = list(pool.map(lambda m: ops.get_plan(tensor, m, ordering="degree", device=dev),
+                              range(tensor.nmodes)))
+    for p in plans:
+        ops.plan_device_buffers(p, dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    tuner = Autotuner(TABLE2_SPACE, device=dev, tune_on_miss=True)
+    kmod.reset_launch_counts()  # the path starts here
+    t0 = time.perf_counter()
+    executor = tfused.FusedCPALS(tensor, RANK, impl="kernel", device=dev, autotune=tuner)
+    tune_s = time.perf_counter() - t0
+    run = executor.run(n_iters=SWEEPS, tol=0.0, seed=0, fit_every=SWEEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kmod.mttkrp_cuda.launches  # the path ends here
+    by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    (result,) = tuner.results.values()
+    expected = tune_launches(tuner, tensor.nmodes) + SWEEPS * tensor.nmodes
+    gap = float(np.max(np.abs(run.fits[0] - lex_fits[0])))
+    print(f"  degree plans + upload {plan_s:.2f} s host (3 threads); lex plans from phase 3's memo")
+    for cfg, sec in result.timings.items():
+        print(f"  {cfg.label}: {sec * 1e3:.4f} ms per sweep of MTTKRPs (tuner, median of "
+              f"{tuner.reps} device-timed calls per mode){'  <- winner' if cfg == result.best else ''}")
+    print(f"  winner {result.best.label}, speedup_vs_default {result.speedup_vs_default:.4f}; "
+          f"executor geometry {[(p.tile_nnz, p.rows_per_block, p.ordering) for p in executor._plans]}"
+          f"; tune {tune_s:.2f} s host; {SWEEPS} sweeps at the winner, fits "
+          f"{[round(float(f), 6) for f in run.fits[0]]}, max gap to phase 3's lex fits {gap:.3e} "
+          f"(tol {tfused.FUSED_FIT_TOL}); split launches {launches} by variant {by_variant} "
+          f"(expected {expected})  [{card}]")
+    check(result.speedup_vs_default >= 1.0, "the tuned config is slower than the default")
+    check(all(p.ordering == result.best.ordering for p in executor._plans),
+          "the executor did not take the tuned ordering")
+    check(np.isfinite(run.fits).all() and gap <= tfused.FUSED_FIT_TOL,
+          f"the autotuned fused fits differ from lex by {gap}")
+    check(by_variant == {"split": expected, "block": 0} and launches == expected,
+          f"the autotuned path's MTTKRPs were not all split launches: {by_variant}")
+    del executor, run, plans
+    return dict(launches=launches, best=result.best.label, fit_gap=gap,
+                timings_ms={c.label: v * 1e3 for c, v in result.timings.items()},
+                speedup_vs_default=result.speedup_vs_default, plan_s=plan_s, tune_s=tune_s)
+
+
+def autotune_phase(dev, card: str) -> dict:
+    """Phase 12: the tuner over the default space on a phase-9 tensor at ranks
+    8 and 16, the winner's plans against plain, the service and standalone
+    fused runs under the tuner, ``measured_vs_modeled``, and the experiment
+    engine with ``autotune=True`` on NELL-2@0.026."""
+    space = TuneSpace()
+    phase(f"phase 12: the autotuner on the card, {len(space.configs())} configs "
+          f"{[c.label for c in space.configs()]}, ranks {TUNE_RANKS}")
+    ops.clear_caches()
+    t0 = time.perf_counter()
+    reqs = [r for _, r in synthetic_trace(TUNE_TRAFFIC)]
+    draw_s = time.perf_counter() - t0
+    tensor = reqs[0].tensor
+    tuner = Autotuner(space, device=dev)
+    kmod.reset_launch_counts()  # the tuning path starts here
+    t0 = time.perf_counter()
+    results = {rank: tuner.tune(tensor, rank) for rank in TUNE_RANKS}
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune_count = kmod.mttkrp_cuda.launches  # the tuning path ends here
+    tune_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    expected = len(TUNE_RANKS) * tune_launches(tuner, tensor.nmodes)
+    print(f"  tensor: dims {tensor.shape}, {tensor.nnz} nonzeros (host draw of {len(reqs)} "
+          f"requests {draw_s:.2f} s); tune {tune_s:.2f} s host for {len(TUNE_RANKS)} bands "
+          f"(plan builds included); split launches {tune_count} by variant {tune_variant} "
+          f"(expected {expected})  [{card}]")
+    check(tune_variant == {"split": expected, "block": 0} and tune_count == expected,
+          f"the tuner's MTTKRPs were not one split launch per measured call: {tune_variant}")
+    misses, hits = tuner.memo.misses, tuner.memo.hits
+    entries = {}
+    for rank, result in results.items():
+        per_mode = [tuner.tune(tensor, rank, modes=(m,)).timings for m in range(tensor.nmodes)]
+        print(f"  rank {rank}, band {dataclasses.astuple(result.signature)}: ms per mode (tuner)")
+        for cfg in space.configs():
+            print(f"    {cfg.label:<16} {[round(t[cfg] * 1e3, 4) for t in per_mode]}, sweep "
+                  f"{result.timings[cfg] * 1e3:.4f}{'  <- winner' if cfg == result.best else ''}")
+        facs = tcp.cp_init(tensor, rank, seed=0, device=dev)
+        alone = {}
+        for cfg in dict.fromkeys((DEFAULT_TILE_CONFIG, result.best)):
+            alone[cfg.label] = [
+                back_to_back_ms(lambda b=ops.plan_device_buffers(ops.get_plan(
+                    tensor, m, tile_nnz=cfg.tile_nnz, rows_per_block=cfg.rows_per_block), dev),
+                    m=m: kmod.mttkrp_cuda(b, facs, m, tensor.shape[m]))
+                for m in range(tensor.nmodes)]
+            print(f"    {cfg.label}: the kernel alone ({BACK_TO_BACK} back to back) "
+                  f"{[round(ms, 4) for ms in alone[cfg.label]]} ms per mode, tuner "
+                  f"{[round(t[cfg] * 1e3, 4) for t in per_mode]}")
+        held = []
+        for m in range(tensor.nmodes):
+            bufs = ops.plan_device_buffers(ops.get_plan(
+                tensor, m, tile_nnz=result.best.tile_nnz,
+                rows_per_block=result.best.rows_per_block), dev)
+            got = kmod.mttkrp_cuda(bufs, facs, m, tensor.shape[m])
+            held.append(compare(bufs, facs, m, tensor.shape[m], got, F32_TOL))
+        print(f"    winner {result.best.label}, speedup_vs_default "
+              f"{result.speedup_vs_default:.4f}; its plans vs plain: max_abs "
+              f"{max(h[0] for h in held):.3e} max_rel {max(h[1] for h in held):.3e} "
+              f"(tol {F32_TOL:g} x scale)  [{card}]")
+        check(result.speedup_vs_default >= 1.0, f"rank {rank}: tuned is slower than the default")
+        check(all(h[2] for h in held), f"rank {rank}: the winner's plans disagree with plain")
+        entries[rank] = dict(best=result.best.label, speedup_vs_default=result.speedup_vs_default,
+                             timings_ms={c.label: v * 1e3 for c, v in result.timings.items()},
+                             kernel_alone_ms=alone, max_abs=max(h[0] for h in held))
+        del facs
+    again = Autotuner(space, device=dev, memo=tuner.memo)
+    repeat = [tuner.tune(tensor, r) is results[r] for r in TUNE_RANKS]
+    repeat += [again.tune(tensor, r).timings == results[r].timings for r in TUNE_RANKS]
+    in_band = [r for r in reqs if tuner.signature_of(r.tensor, r.rank) == results[r.rank].signature]
+    repeat += [tuner.config_for(r.tensor, r.rank) == results[r.rank].best for r in in_band]
+    print(f"  repeat tunes and config_for ({len(in_band)} of {len(reqs)} requests in the tuned "
+          f"bands): same answers {all(repeat)}, memo misses "
+          f"{misses} -> {tuner.memo.misses}, hits {hits} -> {tuner.memo.hits}")
+    check(all(repeat) and tuner.memo.misses == misses, "a repeat tune measured again")
+
+    # The service and standalone fused runs under the tuner.
+    kmod.reset_launch_counts()  # the service path starts here
+    svc = DecompositionService(max_batch=SERVE_MAX_BATCH, max_inflight=SERVE_MAX_INFLIGHT,
+                               device=dev, autotuner=tuner)
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(svc.submit(r), f"{r.request_id} refused")
+    done = svc.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    worst = 0.0
+    for r in reqs:
+        alone_fits = tfused.cp_als_fused(r.tensor, r.rank, n_iters=r.n_iters, tol=0.0,
+                                         seed=r.seed, impl="kernel", device=dev,
+                                         autotune=tuner).fits[0]
+        worst = max(worst, float(np.max(np.abs(np.array(done[r.request_id].state.fits)
+                                               - alone_fits))))
+    torch.cuda.synchronize()
+    serve_count = kmod.mttkrp_cuda.launches  # the service path ends here
+    serve_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    tiles = {r.request_id: tuner.config_for(r.tensor, r.rank).tile_nnz for r in reqs}
+    aligned = all(done[r.request_id].signature.nnz_pad % tiles[r.request_id] == 0 for r in reqs)
+    buckets = sorted({(d.signature.nnz_pad, d.signature.rank_pad) for d in done.values()})
+    print(f"  DecompositionService(autotuner=): {len(done)} of {len(reqs)} answered in "
+          f"{serve_s:.2f} s; buckets (nnz_pad, rank_pad) {buckets}, tuned tiles "
+          f"{sorted(set(tiles.values()))}, aligned {aligned}; fits vs a standalone "
+          f"cp_als_fused(autotune=) of the same seed: max gap {worst:.3e} (tol "
+          f"{tfused.FUSED_FIT_TOL}); split launches {serve_count} by variant {serve_variant}")
+    check(set(done) == {r.request_id for r in reqs}, "a tuned service request was not answered")
+    check(aligned, "a bucket's nnz_pad is not a multiple of its tuned tile")
+    check(worst <= tfused.FUSED_FIT_TOL, f"a tuned service response differs by {worst}")
+    check(serve_variant["split"] == serve_count > 0 and serve_variant["block"] == 0,
+          f"the tuned service's MTTKRPs were not all split launches: {serve_variant}")
+
+    t0 = time.perf_counter()
+    mvm = measured_vs_modeled(tensor, results[TUNE_RANKS[-1]], rank=TUNE_RANKS[-1],
+                              name="phase9-band", device=dev)
+    mvm_s = time.perf_counter() - t0
+    print(f"  measured_vs_modeled, rank {TUNE_RANKS[-1]} ({mvm_s:.1f} s host, exact trace):")
+    for row in mvm:
+        print(f"    {row['config']:<16} measured {row['measured_s']:.4e} s, modeled (O-SRAM) "
+              f"{row['modeled_s']:.4e} s{'  <- winner' if row['best'] else ''}")
+    check(all(np.isfinite(r["modeled_s"]) and r["modeled_s"] > 0 for r in mvm),
+          "measured_vs_modeled priced a config at a non-positive time")
+    ops.clear_caches()
+
+    # The experiment engine with autotune=True; its tuner is recorded.
+    made = []
+
+    class RecordedTuner(Autotuner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    held = []
+
+    def hold(t, impl, mode, facs, out):
+        (engine_tuner,) = made
+        best = engine_tuner.config_for(t, RANK)
+        bufs = ops.plan_device_buffers(ops.get_plan(
+            t, mode, tile_nnz=best.tile_nnz, rows_per_block=best.rows_per_block), dev)
+        held.append(compare(bufs, list(facs), mode, t.shape[mode], out, F32_TOL))
+
+    spec = ExperimentSpec(tensors=(TUNE_ENGINE_TENSOR,), impls=("kernel",), n_iters=ENGINE_ITERS,
+                          fused=True, device=dev.type, autotune=True)
+    texp_engine.Autotuner = RecordedTuner
+    try:
+        kmod.reset_launch_counts()  # the engine path starts here
+        t0 = time.perf_counter()
+        (run,) = run_experiments(spec, first_call_hook=hold).runs
+        engine_s = time.perf_counter() - t0
+        engine_count = kmod.mttkrp_cuda.launches  # the engine path ends here
+    finally:
+        texp_engine.Autotuner = Autotuner
+    engine_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    (engine_tuner,) = made
+    (engine_result,) = engine_tuner.results.values()
+    expected_engine = tune_launches(engine_tuner, len(run.dims)) + 3 * ENGINE_ITERS * len(run.dims)
+    m = run.measured
+    print(f"  run_experiments(autotune=True) {run.key}: {engine_s:.1f} s host; tuned "
+          f"{engine_result.best.label} (speedup_vs_default {engine_result.speedup_vs_default:.4f}, "
+          f"{len(engine_tuner.memo)} cells); fits eager {m.fit:.6f} fused {m.fused_fit:.6f}; "
+          f"steady ms per mode {[round(mm.steady_s * 1e3, 4) for mm in m.modes]} (CUDA events "
+          f"{[mm.steady_device_s and round(mm.steady_device_s * 1e3, 4) for mm in m.modes]}); "
+          f"first calls vs plain on "
+          f"the winner's plans max_rel {max(h[1] for h in held):.3e}; host s "
+          f"{({k: round(v, 2) for k, v in run.host_s.items()})}; split launches {engine_count} "
+          f"by variant {engine_variant} (expected {expected_engine})  [{card}]")
+    check(engine_variant == {"split": expected_engine, "block": 0}
+          and engine_count == expected_engine,
+          f"the autotuned engine's MTTKRPs were not all split launches: {engine_variant}")
+    check(len(held) == len(run.dims) and all(h[2] for h in held),
+          "an autotuned engine call disagrees with plain")
+    check(engine_result.speedup_vs_default >= 1.0 and m.fused_max_fit_delta <= tfused.FUSED_FIT_TOL
+          and np.isfinite([m.fit, m.fused_fit]).all(), f"{run.key}: the autotuned run failed")
+    ops.clear_caches()
+    return dict(launches_tune=tune_count, launches_service=serve_count,
+                launches_engine=engine_count, bands=entries, tune_s=tune_s, serve_s=serve_s,
+                fit_gap=worst, mvm_s=mvm_s, engine_s=engine_s,
+                engine_best=engine_result.best.label,
+                max_abs=max([e["max_abs"] for e in entries.values()]
+                            + [h[0] for h in held]))
+
+
+# Phase 13: LM decode serving at full width and depth.
+DECODE_PROMPT = 256
+SERVE_RUNS = {  # label -> (requests, prompt tokens, slots, max_len)
+    "launch/serve.py's load": (8, 4, 4, 48),
+    "256-token prompts": (4, DECODE_PROMPT, 4, 320),
+}
+
+
+def timed_decode(decode, events: list):
+    """``decode`` with CUDA events recorded around each call."""
+    def step(model, tokens, state):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = decode(model, tokens, state)
+        end.record()
+        events.append((start, end))
+        return out
+    return step
+
+
+def profile_decode_step(model, cfg, decode, slots: int, max_len: int, tick_ms: float) -> dict:
+    """Device time of one decode step at B = ``slots`` by kernel class
+    (torch.profiler); the idle share is of ``tick_ms``, a tick's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.zeros((slots,), dtype=torch.int32, device=model.embed.device)
+    state = init_decode_state(cfg, slots, max_len, cache_dtype=torch.float32,
+                              device=model.embed.device)
+    decode(model, tokens, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode(model, tokens, state)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    classes = {"casts and copies": 0.0, "products (GEMM/GEMV)": 0.0, "softmax": 0.0,
+               "index (embedding, cache writes)": 0.0, "rest (elementwise, reductions)": 0.0}
+    for e in events:
+        name = e.key.lower()
+        if "copy" in name or "memcpy" in name:
+            key = "casts and copies"
+        elif any(t in name for t in ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "dot_kernel",
+                                     "splitk", "bmm")):
+            key = "products (GEMM/GEMV)"
+        elif "softmax" in name:
+            key = "softmax"
+        elif "index" in name or "gather" in name or "scatter" in name:
+            key = "index (embedding, cache writes)"
+        else:
+            key = "rest (elementwise, reductions)"
+        classes[key] += e.self_device_time_total / 1e3
+    busy = sum(classes.values())
+    kernels = sum(e.count for e in events)
+    print(f"    profile of one step at B={slots}: {kernels} device operations, device busy "
+          f"{busy:.3f} ms (profiler) of a {tick_ms:.3f} ms tick, idle share "
+          f"{max(0.0, 1 - busy / tick_ms):.3f}")
+    for key, ms in classes.items():
+        print(f"      {key:<34} {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}")
+    for e in events[:8]:
+        print(f"      {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
+    return dict(busy_ms=busy, kernels=kernels, **{k.split(" (")[0].replace(" ", "_") + "_ms": v
+                                                  for k, v in classes.items()})
+
+
+def decode_phase(dev, card: str) -> dict:
+    """Phase 13: internlm2-1.8b decode at full width and depth (bf16, random
+    weights): teacher-forced decode against the prefill's logits, two
+    ``BatchServer`` runs, and a reused slot against a fresh server."""
+    cfg = get_config(ARCH)
+    phase(f"phase 13: {ARCH} decode serving, full width and depth ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads, {cfg.num_kv_heads} KV heads, head_dim "
+          f"{cfg.head_dim}), {cfg.dtype}")
+    model = init_model(cfg, seed=0, device=dev)
+    decode = make_decode_fn(cfg, device=dev)
+    fkmod.reset_launch_counts()
+    kmod.reset_launch_counts()
+
+    # Teacher-forced decode of one 256-token prompt against forward at S = 256.
+    toks = torch.from_numpy(next(SyntheticLMStream(cfg.vocab_size, DECODE_PROMPT, 1, seed=3))
+                            ["tokens"]).to(dev)
+    with torch.inference_mode():
+        full = forward(model, cfg, {"tokens": toks})[0].float()
+    state = init_decode_state(cfg, 1, DECODE_PROMPT, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = [decode(model, toks[:, t], state)[0][0] for t in range(DECODE_PROMPT)]
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    gap, scale = logits_gap(torch.stack(steps), full, cfg.vocab_size)
+    print(f"  teacher-forced decode of {DECODE_PROMPT} tokens (B=1, bf16 cache) against forward "
+          f"at S={DECODE_PROMPT}: max |gap| {gap:.4f} of max |logit| {scale:.3f} (tol "
+          f"{BF16_SCALE_TOL} x scale); {tf_s:.2f} s host, {DECODE_PROMPT / tf_s:.1f} steps/s; "
+          f"pos {state['pos'].tolist()}  [{card}]")
+    check(gap <= BF16_SCALE_TOL * scale, "decode logits differ from the prefill's")
+    check(state["pos"].tolist() == [DECODE_PROMPT], "pos did not advance once a step")
+    del steps, full, state
+
+    runs = {}
+    for label, (n_req, prompt_len, slots, max_len) in SERVE_RUNS.items():
+        if prompt_len == DECODE_PROMPT:
+            prompts = next(SyntheticLMStream(cfg.vocab_size, prompt_len, n_req, seed=4))["tokens"]
+            prompts = [p.tolist() for p in prompts]
+            eos = -1
+        else:  # launch/serve.py's prompts and ServeConfig's eos
+            prompts = [[2 + (i % 11), 5, 7, 3] for i in range(n_req)]
+            eos = ServeConfig().eos_id
+        srv = BatchServer(cfg, model, ServeConfig(max_slots=slots, max_len=max_len, eos_id=eos),
+                          device=dev)
+        events = []
+        srv.decode = timed_decode(srv.decode, events)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            srv.submit(f"req-{i}", p)
+        done = srv.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ticks = len(events)
+        tick_ms = [s.elapsed_time(e) for s, e in events]
+        tokens = sum(len(d["tokens"]) for d in done)
+        cache_mb = sum(srv.state[k].numel() * srv.state[k].element_size()
+                       for k in ("k", "v")) / 1e6
+        runs[label] = dict(requests=len(done), tokens=tokens, ticks=ticks, wall_s=wall,
+                           tokens_per_s=tokens / wall, tick_device_ms_p50=float(np.median(tick_ms)),
+                           tick_wall_ms=wall / ticks * 1e3, peak_gb=peak, cache_mb=cache_mb)
+        print(f"  BatchServer, {label}: {len(done)} of {n_req} requests answered, {tokens} tokens "
+              f"in {ticks} ticks, {wall:.2f} s, {tokens / wall:.1f} tokens/s; ticks median "
+              f"{np.median(tick_ms):.3f} ms between CUDA events ({wall / ticks * 1e3:.3f} ms wall "
+              f"each); float32 cache {cache_mb:.1f} MB; peak device memory {peak:.2f} GB  [{card}]")
+        check(sorted(d["id"] for d in done) == sorted(f"req-{i}" for i in range(n_req)),
+              f"{label}: a request was not answered")
+        check(all(d["tokens"] for d in done), f"{label}: an empty answer")
+        del srv
+        runs[label]["profile_ms"] = profile_decode_step(model, cfg, decode, slots, max_len,
+                                                        wall / ticks * 1e3)
+
+    # A reused slot against a fresh server, as tests/test_runtime.py checks.
+    prompt = next(SyntheticLMStream(cfg.vocab_size, 16, 1, seed=5))["tokens"][0].tolist()
+    outs = []
+    for first in ([3, 3], None):
+        srv = BatchServer(cfg, model, ServeConfig(max_slots=1, max_len=32, eos_id=-1), device=dev)
+        if first is not None:
+            srv.submit("a", first)
+        srv.submit("b", prompt)
+        outs.append({d["id"]: d["tokens"] for d in srv.run_until_drained()}["b"])
+    print(f"  slot reuse: request b after a in one slot {outs[0]} ; in a fresh server {outs[1]}")
+    check(outs[0] == outs[1], "a reused slot's tokens differ from a fresh server's")
+    flash, split = fkmod.flash_attention_cuda.launches, kmod.mttkrp_cuda.launches
+    print(f"  hand-written kernels launched by phase 13: flash {flash}, MTTKRP {split} (the decode "
+          f"path is plain PyTorch, as JAX's is plain jnp)")
+    check(flash == 0 and split == 0, "the decode path launched a hand-written kernel")
+    del model
+    return dict(teacher_forced_gap=gap, teacher_forced_scale=scale, teacher_forced_s=tf_s,
+                runs=runs, slot_reuse_equal=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -1585,7 +2027,9 @@ def main() -> int:
     phase_kernel_cases(dev)
 
     mttkrp_entry, nell2, lex_fits = cp_als_phases(dev, card)
-    # Phase 10 runs here, while phase 3's tensor and lex plans are resident.
+    # Phase 12's Table II part and phase 10 run here, while phase 3's tensor
+    # and lex plans are resident.
+    table2 = autotune_table2_phase(dev, card, nell2, lex_fits)
     ordered = ordering_phase(dev, card, nell2, lex_fits)
     del nell2
     gc.collect()
@@ -1602,14 +2046,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     engine = engine_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = autotune_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    decoded = decode_phase(dev, card)
     row_run = ordered["launches"].get("rows", 0)
     mttkrp_entry["launches_by_path"] = {
         "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
         "cp_als_fused, lex / secondary-sort / degree (phase 10)": row_run,
-        "run_experiments, impl kernel (phase 11)": engine["launches"]}
-    mttkrp_entry["launches"] += served["launches"] + row_run + engine["launches"]
+        "run_experiments, impl kernel (phase 11)": engine["launches"],
+        "Autotuner.tune, the service's band at ranks 8 and 16 (phase 12)": tuned["launches_tune"],
+        "DecompositionService(autotuner=) and cp_als_fused(autotune=) (phase 12)":
+            tuned["launches_service"],
+        "run_experiments(autotune=True), NELL-2@0.026 (phase 12)": tuned["launches_engine"],
+        "FusedCPALS(autotune=), Table II, lex / degree (phase 12)": table2["launches"],
+        "decode_step, BatchServer (phase 13)": 0}
+    mttkrp_entry["launches"] = sum(mttkrp_entry["launches_by_path"].values())
     mttkrp_entry["max_abs_err"] = max(
-        [mttkrp_entry["max_abs_err"], served["stacked_max_abs"], engine["max_abs"]]
+        [mttkrp_entry["max_abs_err"], served["stacked_max_abs"], engine["max_abs"],
+         tuned["max_abs"]]
         + [r["max_abs"] for o, res in ordered["results"].items() if o != "blocked"
            for r in res["rows"]])
     mttkrp_entry["per_ordering"] = {
@@ -1653,6 +2110,11 @@ def main() -> int:
     )
     mttkrp_entry["engine"] = {k: engine[k] for k in (
         "runs", "ref", "speedup", "energy", "engine_s", "recon_s", "gates_s", "reorder_s")}
+    mttkrp_entry["autotune"] = dict(table2={k: v for k, v in table2.items() if k != "launches"},
+                                    **{k: v for k, v in tuned.items() if not k.startswith("launches")})
+    flash_entry["launches_by_path"] = {"prefill (phase 7)": flash_entry["launches"],
+                                       "decode_step, BatchServer (phase 13)": 0}
+    flash_entry["decode"] = decoded
     mttkrp_entry["service"] = {k: served[k] for k in (
         "stats", "batch_ms", "profile_ms", "peak_gb", "stage_host_ms", "enqueue_ms", "stacked_ms",
         "stacked_plain_ms", "stacked_bound_ms")}

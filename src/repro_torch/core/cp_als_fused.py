@@ -18,8 +18,9 @@ re-association; ``FUSED_FIT_TOL`` is that tolerance, as in the JAX package.
 ``MultiTensorCPALS`` runs the same sweep over a batch of distinct tensors
 of one padded geometry (the service, ``repro_torch.serve``), every mode's
 MTTKRP one launch over the batch's stacked plan.  ``ordering=`` selects
-the nonzero execution order (``repro_torch.reorder``); the sharded
-executor is not ported yet.
+the nonzero execution order (``repro_torch.reorder``) and ``autotune=``
+takes the plan geometry from a tuner (``repro_torch.dse.autotune``); the
+sharded executor is not ported yet.
 """
 
 from __future__ import annotations
@@ -104,7 +105,19 @@ class FusedCPALS:
         tile_nnz: int = 256,
         rows_per_block: int = 256,
         ordering: str | None = None,
+        autotune=None,
     ) -> None:
+        # ``autotune`` is duck-typed (``config_for(tensor, rank) -> cfg``
+        # with tile_nnz/rows_per_block/ordering fields, in practice
+        # ``repro_torch.dse.autotune.Autotuner``) so core never imports the
+        # DSE package.  The tuned band winner overrides the plan geometry;
+        # an explicitly passed ``ordering`` still wins over the tuned one.
+        if autotune is not None:
+            cfg = autotune.config_for(tensor, rank)
+            tile_nnz = int(cfg.tile_nnz)
+            rows_per_block = int(cfg.rows_per_block)
+            if ordering is None and cfg.ordering != "lex":
+                ordering = cfg.ordering
         if tensor.nnz == 0:
             raise ValueError(
                 "cp_als requires a tensor with at least one nonzero "
@@ -367,6 +380,7 @@ def cp_als_fused(
     ordering: str | None = None,
     init_factors: Sequence[Sequence] | None = None,
     verbose: bool = False,
+    autotune=None,
 ) -> BatchedCPState:
     """One-shot fused CP-ALS (build the executor, run once).
 
@@ -381,6 +395,7 @@ def cp_als_fused(
         tile_nnz=tile_nnz,
         rows_per_block=rows_per_block,
         ordering=ordering,
+        autotune=autotune,
     )
     return executor.run(
         n_iters=n_iters,

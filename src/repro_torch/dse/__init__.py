@@ -1,6 +1,6 @@
 """Design-space exploration over the paper's memory-technology model.
 
-Copy of ``repro.dse`` for the PyTorch port, without the autotuner.
+Copy of ``repro.dse`` for the PyTorch port.
 
 The paper's headline numbers (Fig 7 speedup, Fig 8 energy) are two points
 in a larger design space — frequency, WDM wavelength count, port width,
@@ -25,15 +25,26 @@ axes sweepable (DESIGN.md §8):
     trace simulation or the Che approximation per tensor;
   * ``repro_torch.dse.pareto``    — the time-vs-energy comparison layer:
     Pareto frontier, ranking, and baseline-relative speedup/savings;
-  * ``repro.dse.autotune`` — the measured side of the loop — is not
-    ported yet (ROADMAP.md Queue 1 item 6): its names raise an
-    ``ImportError`` that says so.
+  * ``repro_torch.dse.autotune`` — the measured side of the loop: the
+    plan geometry of the split MTTKRP kernel swept with times measured on
+    the card (its plain version's on the CPU), the winner cached per
+    geometry band (DESIGN.md §13).
 
 The TPU-v5e and photonic-IMC stacks participate as plain hierarchy
 instances — no per-technology dispatch; sweep tables render through
 ``repro_torch.perf.report``.
 """
 
+from repro_torch.dse.autotune import (
+    DEFAULT_TILE_CONFIG,
+    Autotuner,
+    TileConfig,
+    TuneResult,
+    TuneSpace,
+    WallTimeMemo,
+    measure_config,
+    measured_vs_modeled,
+)
 from repro_torch.dse.evaluator import (
     HitRateCache,
     PointTensorResult,
@@ -82,25 +93,12 @@ __all__ = [
     "rank_configurations",
     "compare_techs",
     "paper_pair_result",
-]
-
-# The names of ``repro.dse.autotune``, which the port does not have yet.
-_AUTOTUNE_NAMES = frozenset({
     "DEFAULT_TILE_CONFIG",
-    "Autotuner",
     "TileConfig",
-    "TuneResult",
     "TuneSpace",
     "WallTimeMemo",
+    "TuneResult",
+    "Autotuner",
     "measure_config",
     "measured_vs_modeled",
-})
-
-
-def __getattr__(name: str):
-    if name in _AUTOTUNE_NAMES:
-        raise ImportError(
-            f"repro_torch.dse.{name} is not ported yet: the autotuner is "
-            "ROADMAP.md Queue 1 item 6 (dse/autotune.py)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+]

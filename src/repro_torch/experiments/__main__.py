@@ -6,7 +6,8 @@ technologies, prints the measured-vs-modeled report and writes the
 ``BENCH_experiments.json``-shaped payload (by default to
 ``BENCH_experiments_torch.json``, which git ignores).  The arguments are
 those of the JAX package's ``scripts/run_experiments.py``, plus
-``--device``.
+``--device``; ``--autotune`` tunes each tensor's plan geometry on
+``--device`` before its kernel cells.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.experiments --device cpu \\
@@ -102,7 +103,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--autotune",
         action="store_true",
-        help="refused: the autotuner is ROADMAP.md Queue 1 item 6",
+        help="tune (tile_nnz, rows_per_block) per tensor through the "
+        "closed-loop DSE autotuner before measuring kernel cells",
     )
     ap.add_argument(
         "--device",
@@ -117,11 +119,6 @@ def main(argv: list[str] | None = None) -> int:
             "--backend selects a Pallas backend of the JAX package; the port "
             "runs the CUDA kernel on the card and its plain version on the CPU "
             "(choose with --device)"
-        )
-    if args.autotune:
-        raise SystemExit(
-            "--autotune is not ported yet: the autotuner is ROADMAP.md Queue 1 "
-            "item 6 (dse/autotune.py)"
         )
     impls = tuple(i.strip() for i in args.impls.split(",") if i.strip())
     if "sharded" in impls:
@@ -143,6 +140,7 @@ def main(argv: list[str] | None = None) -> int:
         fused=not args.no_fused,
         fit_every=args.fit_every,
         device=args.device,
+        autotune=args.autotune,
     )
     t0 = time.perf_counter()
     result = run_experiments(spec)

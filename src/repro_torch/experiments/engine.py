@@ -20,9 +20,12 @@ and reconciles them (DESIGN.md §7):
      hit-rate reconciliation at the documented 0.10 tolerance.
 
 The trace simulation and the pricing are numpy on the host; each run
-records their host seconds (``RunResult.host_s``).  The sharded impl
-(ROADMAP.md Queue 1 item 8) and the autotuner (item 6) are not ported.
-``python -m repro_torch.experiments`` drives this.
+records their host seconds (``RunResult.host_s``).  With
+``ExperimentSpec(autotune=True)`` each tensor's plan geometry is tuned
+first (``repro_torch.dse.autotune``, on ``device``) and its ``kernel``
+cells are measured and traced at the winner's ``(tile_nnz,
+rows_per_block)``.  The sharded impl (ROADMAP.md Queue 1 item 8) is not
+ported.  ``python -m repro_torch.experiments`` drives this.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from repro_torch.data.synthetic_tensors import (
     scaled_characteristics,
 )
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.dse import evaluate_sweep, tech_comparison
+from repro_torch.dse import Autotuner, evaluate_sweep, tech_comparison
 from repro_torch.experiments.measure import (
     ExecutedTraceHitRates,
     MeasuredRun,
@@ -98,6 +101,10 @@ class ExperimentSpec:
     fit_every: int = 1
     # Where the runs execute; "cuda" raises without a GPU.
     device: str = DEFAULT_DEVICE
+    # Tune (tile_nnz, rows_per_block) per tensor through the closed-loop
+    # DSE autotuner, on ``device``, before measuring the kernel cells
+    # (DESIGN.md §13).
+    autotune: bool = False
 
     def __post_init__(self):
         for impl in self.impls:
@@ -355,12 +362,17 @@ def run_experiments(
     device = resolve_device(spec.device)
     runs: list[RunResult] = []
     points = tech_comparison(list(ALL_TECHS), rank=spec.rank)
+    tuner = Autotuner(device=device) if spec.autotune else None
     for name, scale in spec.tensors:
         tensor = make_frostt_like(name, scale=scale, seed=spec.seed)
         ft = scaled_characteristics(name, tensor, scale=scale)
         tensors = {ft.name: ft}
         modeled = evaluate_sweep(points, tensors, hit_rate_method="che")
         for impl in spec.impls:
+            tile_nnz = rows_per_block = 256
+            if tuner is not None and impl == "kernel":
+                cfg = tuner.tune(tensor, spec.rank).best
+                tile_nnz, rows_per_block = cfg.tile_nnz, cfg.rows_per_block
             for ordering in spec.orderings:
                 # The degree strategy relabels the executed tensor once,
                 # globally (DESIGN.md §10).  The dims/nnz characteristics
@@ -386,6 +398,8 @@ def run_experiments(
                     n_iters=spec.n_iters,
                     impl=impl,
                     seed=spec.seed,
+                    tile_nnz=tile_nnz,
+                    rows_per_block=rows_per_block,
                     ordering=ordering,
                     cost_analysis=spec.cost_analysis,
                     fused=spec.fused,
@@ -395,7 +409,12 @@ def run_experiments(
                 )
                 measure_s = time.perf_counter() - t0 - hook_s[0]
                 trace_cache = ExecutedTraceHitRates(
-                    exec_tensor, impl, ordering=ordering, device=device
+                    exec_tensor,
+                    impl,
+                    tile_nnz=tile_nnz,
+                    rows_per_block=rows_per_block,
+                    ordering=ordering,
+                    device=device,
                 )
                 t0 = time.perf_counter()
                 priced = evaluate_sweep(points, tensors, cache=trace_cache, device=device)

@@ -1,4 +1,5 @@
-"""GQA attention for full sequences (port of ``repro.models.attention``).
+"""GQA attention: full sequences and KV-cache decode (port of
+``repro.models.attention``).
 
 ``attention(params, cfg, x, impl=...)`` keeps the JAX package's rule:
 ``"auto"`` takes the blocked path above 2048 tokens and the dense path
@@ -10,8 +11,13 @@ departs from the JAX package's, whose blocked path is a ``lax.scan`` over
 the same online-softmax schedule as its Pallas kernel; the tests hold the
 port against both.
 
-Not in this slice: ``decode_attention``, ``compute_kv`` and the custom-VJP
-backward (ROADMAP.md, Queue 1).
+``decode_attention`` is one token per sequence against a KV cache, each
+sequence at its own position (continuous batching); it is a plain
+PyTorch product, as JAX's is plain ``jnp``, and reaches no kernel.
+
+Not ported: the custom-VJP backward (ROADMAP.md Queue 1 item 3) and
+``decode_attention(lse_partial=True)``, whose one caller is the sharded
+decode (item 10).
 """
 
 from __future__ import annotations
@@ -22,7 +28,15 @@ from torch import nn
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, frozen, normal, rope_frequencies
 
-__all__ = ["Attention", "NEG_INF", "attention", "init_attention", "project_qkv"]
+__all__ = [
+    "Attention",
+    "NEG_INF",
+    "attention",
+    "compute_kv",
+    "decode_attention",
+    "init_attention",
+    "project_qkv",
+]
 
 NEG_INF = -1e30
 
@@ -54,12 +68,18 @@ def _out_proj(params, out: torch.Tensor) -> torch.Tensor:
     )
 
 
-def project_qkv(params, cfg, x: torch.Tensor):
-    """q (B, S, H, hd), k and v (B, S, KV, hd), with RoPE at positions 0..S-1."""
-    positions = torch.arange(x.shape[1], device=x.device)
-    cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta)
-    q = apply_rope(_head_proj(x, params["wq"]), cos, sin)
-    k = apply_rope(_head_proj(x, params["wk"]), cos, sin)
+def project_qkv(params, cfg, x: torch.Tensor, *, positions: torch.Tensor | None = None,
+                rope: bool = True):
+    """q (B, S, H, hd), k and v (B, S, KV, hd).  With ``rope``, q and k are
+    rotated at ``positions`` ((S,) or per sequence (B, S); default 0..S-1)."""
+    q = _head_proj(x, params["wq"])
+    k = _head_proj(x, params["wk"])
+    if rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     return q, k, _head_proj(x, params["wv"])
 
 
@@ -100,6 +120,63 @@ def attention(params, cfg, x: torch.Tensor, *, causal: bool = True,
     else:
         raise ValueError(f"attention impl {impl!r}: use 'auto', 'dense' or 'blocked'")
     return _out_proj(params, out)
+
+
+def compute_kv(params, cfg, x: torch.Tensor, *, rope: bool = False):
+    """K/V for cross-attention from encoder states, (B, S, KV, hd) each.
+    ``rope`` is accepted and ignored, as in JAX."""
+    return _head_proj(x, params["wk"]), _head_proj(x, params["wv"])
+
+
+def decode_attention(
+    params,
+    cfg,
+    x: torch.Tensor,  # (B, 1, d_model) current-token activations
+    cache_k: torch.Tensor,  # (B, S_cache, KV, hd)
+    cache_v: torch.Tensor,
+    pos,  # (B,) per-sequence positions, or one for all
+    *,
+    update_cache: bool = True,
+    lse_partial: bool = False,
+    rope: bool = True,
+    rope_pos=None,
+):
+    """Single-token decode with a KV cache and per-sequence positions:
+    slots of a continuous-batching server progress independently.
+
+    With ``update_cache`` this token's k and v are written into the caches
+    IN PLACE at ``(b, pos[b])``; cache entries past ``pos[b]`` are masked,
+    so a reused slot's stale rows need no clearing.  Each ``pos[b]`` must
+    lie in ``[0, S_cache)``: JAX drops a write past the cache, this index
+    write raises (on the card, a device-side assert).  ``rope_pos``
+    decouples the rotary position from the cache and mask position.
+    Scores are float32; probabilities are cast back to the activations'
+    dtype, as in JAX.  Returns ``(out (B, 1, d_model), cache_k, cache_v)``.
+    """
+    if lse_partial:
+        raise NotImplementedError(
+            "decode_attention(lse_partial=True) is not ported yet: its one caller is the "
+            "sharded decode (distributed/decode.py), ROADMAP.md Queue 1 item 10"
+        )
+    b, hd = x.shape[0], cfg.head_dim
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (b,)).long()
+    rp = pos if rope_pos is None else torch.broadcast_to(
+        torch.as_tensor(rope_pos, device=x.device), (b,))
+    q, k_new, v_new = project_qkv(params, cfg, x, positions=rp[:, None], rope=rope)
+    if update_cache:
+        bidx = torch.arange(b, device=x.device)
+        cache_k[bidx, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[bidx, pos] = v_new[:, 0].to(cache_v.dtype)
+    skv, kvh = cache_k.shape[1], cache_k.shape[2]
+    g = cfg.num_heads // kvh
+    qg = q.reshape(b, 1, kvh, g, hd)
+    scores = torch.einsum("bqkgd,btkd->bkgqt", qg, cache_k.to(q.dtype)).float() * hd**-0.5
+    valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]  # (B, skv)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqt,btkd->bkgqd", probs, cache_v.to(q.dtype))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
+    return _out_proj(params, out), cache_k, cache_v
 
 
 class Attention(nn.Module):

@@ -1,18 +1,21 @@
-"""Dense decoder-only transformer: init and full-sequence forward (port of
-``repro.models.transformer`` for the dense family).
+"""Dense decoder-only transformer: init, full-sequence forward and cached
+decode (port of ``repro.models.transformer`` for the dense family).
 
   init_model(cfg, seed=..., device=...)  -> Transformer (float32 master weights)
   forward(model, cfg, batch)             -> logits (B, S, padded_vocab) in cfg.dtype
+  init_decode_state(cfg, B, max_seq)     -> {"pos", "k", "v"} decode state
+  decode_step(model, cfg, tokens, state) -> logits (B, padded_vocab) float32; the
+                                            state is updated in place
 
 The JAX package scans one layer body over stacked parameters; here the
 stack is a Python loop over per-layer modules.  Weights stay in
 ``cfg.param_dtype`` and are cast to ``cfg.dtype`` at use, as in JAX.
 Parameters take no gradient: the port has no backward yet.
 
-Not in this slice (ROADMAP.md, Queue 1): decode (``init_decode_state``,
-``decode_step``), the MoE family, training (``cross_entropy_loss``), and
-the RWKV, hybrid, encoder-decoder and frontend families.  Each raises
-``NotImplementedError``.
+Not in this slice (ROADMAP.md, Queue 1): the MoE family (item 2),
+training (``cross_entropy_loss``, item 3), and the RWKV, hybrid,
+encoder-decoder and frontend families (item 10).  Each raises
+``NotImplementedError`` through ``check_supported``.
 """
 
 from __future__ import annotations
@@ -22,11 +25,19 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention, attention, init_attention
+from repro_torch.models.attention import Attention, attention, decode_attention, init_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, SwiGLU, frozen, init_embedding, init_swiglu
 
-__all__ = ["DenseLayer", "Transformer", "check_supported", "forward", "init_model"]
+__all__ = [
+    "DenseLayer",
+    "Transformer",
+    "check_supported",
+    "decode_step",
+    "forward",
+    "init_decode_state",
+    "init_model",
+]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -129,3 +140,42 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     head = model.embed if cfg.tie_embeddings else model.lm_head
     logits = x @ head.to(x.dtype).T
     return _mask_padded_vocab(logits, cfg)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
+                      cache_dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
+    """Zeroed decode state of the attention family: ``pos`` (B,) int32 and the
+    per-layer caches ``k``, ``v`` (L, B, max_seq, KV, hd) in ``cache_dtype``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "k": torch.zeros(shape, dtype=cache_dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cache_dtype, device=dev),
+    }
+
+
+def decode_step(model: Transformer, cfg: ModelConfig, tokens, state: dict):
+    """One decode step.  ``tokens``: (B,) integer ids (tensor or numpy).
+
+    Returns ``(logits (B, padded_vocab) float32, state)``: each layer's
+    caches are written in place at each sequence's position and ``pos``
+    advances by one.  The caller's state dict is the one returned.
+    """
+    check_supported(cfg)
+    if isinstance(tokens, np.ndarray):
+        tokens = torch.from_numpy(tokens)
+    tokens = tokens.to(device=model.embed.device, dtype=torch.long)
+    pos = state["pos"]
+    x = model.embed[tokens][:, None].to(cfg.dtype)
+    for layer, cache_k, cache_v in zip(model.layers, state["k"], state["v"]):
+        h = layer.ln1(x, cfg.norm_eps)
+        out, _, _ = decode_attention(layer.attn.params(), cfg, h, cache_k, cache_v, pos)
+        x = x + out
+        x = x + layer.ffn(layer.ln2(x, cfg.norm_eps))
+    state["pos"] += 1
+    x = model.final_ln(x, cfg.norm_eps)
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    logits = (x[:, 0] @ head.to(x.dtype).T).float()
+    return _mask_padded_vocab(logits, cfg), state

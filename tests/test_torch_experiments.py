@@ -9,6 +9,7 @@ package's ``cp_init`` draws (the port's own draws use a
 ``FUSED_FIT_TOL``.  Everything runs on ``device="cpu"``.
 """
 
+import dataclasses
 import json
 import types
 from pathlib import Path
@@ -270,7 +271,7 @@ def test_engine_payload_round_trips(engine_pair):
     assert payload["runs"][1]["measured"]["modes"][0]["flops"] == 2 * 3 * got.runs[0].nnz * 16
 
 
-def test_sharded_and_autotune_are_refused_with_their_items():
+def test_sharded_is_refused_with_its_item_and_autotune_is_taken():
     t, _ = _pair()
     with pytest.raises(NotImplementedError, match="item 8"):
         ExperimentSpec(impls=("ref", "sharded"), device="cpu")
@@ -280,12 +281,17 @@ def test_sharded_and_autotune_are_refused_with_their_items():
         tmeas.executed_input_traces(t, "sharded", 0, device="cpu")
     with pytest.raises(SystemExit, match="item 8"):
         tmain.main(["--impls", "ref,sharded", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 6"):
-        tmain.main(["--autotune", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--device"):
         tmain.main(["--backend", "xla", "--device", "cpu"])
+    # The autotuner is ported (tests/test_torch_autotune.py runs both): the
+    # spec carries JAX's field, and --autotune is no longer refused.
+    assert ExperimentSpec(autotune=True).autotune is True
+    assert [f.name for f in dataclasses.fields(ExperimentSpec) if f.name == "autotune"] == [
+        f.name for f in dataclasses.fields(JSpec) if f.name == "autotune"]
+    with pytest.raises(SystemExit, match="unknown tensor"):
+        tmain.main(["--autotune", "--device", "cpu", "--tensors", "nope"])
     with pytest.raises(TypeError):
-        ExperimentSpec(autotune=True)  # no such field: nothing is silently ignored
+        ExperimentSpec(backend="xla")  # no such field: nothing is silently ignored
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

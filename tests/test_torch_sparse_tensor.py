@@ -99,7 +99,7 @@ def test_hypergraph_stats_and_helpers_equal():
     _assert_tensors_equal(t.mode_sorted(2), tj.mode_sorted(2))
 
 
-def test_non_lex_ordering_is_not_ported():
+def test_non_lex_ordering_plan_matches_jax_and_unknown_raises():
     """The orderings are ported now (tests/test_torch_reorder.py holds every
     one against JAX): a non-lex plan equals JAX's, and an unknown ordering
     raises as JAX's does."""
