@@ -139,12 +139,30 @@ Phases, each of which fails the run (exit code 1, no result line):
      the median CUDA-event ms per tick, peak memory and a profile of one
      step by kernel class (device busy, idle share of a tick); every
      request must be answered; a reused slot's tokens equal to a fresh
-     server's.  The decode path launches no hand-written kernel (checked).
+     server's.  The decode path launches no hand-written kernel (checked);
+ 14. the sharded path (``repro_torch.distributed``), one process per rank
+     started by ``spawn`` with the backend ``backend_for`` picks: (a) at 1
+     rank (NCCL) and 3 and 8 ranks sharing the card (gloo), ``mttkrp(impl=
+     "sharded")`` in both schemes and every mode over the cases of
+     tests/test_distributed.py, a restart batch and the blocked order,
+     against ``mttkrp_ref`` on the card (1e-4 of each element's sum of
+     absolute terms), one split launch per call on every rank, a
+     ``mode_ordered`` call bit for bit, each rank's launch on its shard plan
+     against the plain version; (b) phase 3's tensor, memory-mapped from
+     files the script writes after phase 10, on 4 ranks sharing the card:
+     eager ``cp_als(impl="sharded")`` in both schemes and ``cp_als_fused``
+     with 4 restarts (``mode_ordered``), 5 sweeps each, fits within
+     FUSED_FIT_TOL of phase 3's, launches per rank, the setups' host
+     seconds, per mode the local launch alone (one rank at a time, queued
+     behind a sleep), the collective alone and the whole call, peak memory
+     per rank; (c) ``run_experiments(impls=("sharded",), n_shards=8)`` on
+     phase 11's stand-ins, each rank's launches and the fits against phase
+     11's.
 
 The last three lines are the card's ``name, power.limit``, a JSON object
 with the main paths' kernels' numbers (the split MTTKRP kernel's row-run
 mode with the block kernel's time as ``previous_ms``, its launches over
-the CP-ALS paths of phases 3, 9, 10, 11 and 12 under ``launches_by_path``,
+the CP-ALS paths of phases 3, 9, 10, 11, 12 and 14 under ``launches_by_path``,
 its per-ordering times, phase 11's per-tensor times and phase 12's tunes; its
 tile mode, on the blocked plans of phase 10, with the block kernel's time
 as ``previous_ms``; and the wgmma flash kernel
@@ -160,8 +178,10 @@ import dataclasses
 import gc
 import itertools
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -479,10 +499,11 @@ def mttkrp_flops(plan, rank: int, nnz: int) -> int:
     return nnz * rank * (len(plan.shape) + 1)
 
 
-def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray]:
+def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray, np.ndarray]:
     """Phases 3-5: the CP-ALS main path at NELL-2 Table II size.  Returns the
-    MTTKRP kernel's entry of the ``kernels`` line, the tensor and the fused
-    run's fits (restarts x sweeps), for phase 10."""
+    MTTKRP kernel's entry of the ``kernels`` line, the tensor, the fused
+    run's fits (restarts x sweeps), for phases 10, 12 and 14, and the eager
+    run's, for phase 14."""
     # -- phase 3: the main path at Table II size -----------------------------
     phase("phase 3: NELL-2 stand-in at Table II size, rank 16")
     t0 = time.perf_counter()
@@ -627,7 +648,7 @@ def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray]:
         split_ctas=split_ctas,
         launches_by_variant=by_variant,
     )
-    return kern, tensor, fused.fits
+    return kern, tensor, fused.fits, np.asarray(eager.fits)
 
 
 ORDERINGS = ("lex", "secondary-sort", "degree", "blocked")
@@ -1509,7 +1530,8 @@ def engine_phase(dev, card: str) -> dict:
                                    per_mode_event_ms=[r["event_ms"] for r in rows],
                                    per_mode_kernel_ms=[r["kernel_ms"] for r in rows],
                                    per_mode_bound_ms=[r["bound_ms"] for r in rows],
-                                   host_s=run.host_s, all_within_tol=run.all_within_tol)
+                                   host_s=run.host_s, all_within_tol=run.all_within_tol,
+                                   fit=m.fit)
     check(len(held) == sum(len(r.dims) for r in result.runs), f"{len(held)} first calls held")
     check(all(h[4] for h in held), "a first call of the engine disagrees with the plain version")
     print("  E-SRAM -> O-SRAM, priced (measured trace hit rates) beside modeled (Che):")
@@ -1996,6 +2018,372 @@ def decode_phase(dev, card: str) -> dict:
                 runs=runs, slot_reuse_equal=True)
 
 
+# Phase 14: the sharded path (repro_torch.distributed), one process per rank.
+# (a) 1 rank on NCCL (a card for it), 3 and 8 ranks sharing the card on gloo;
+# (b) Table II on 4 ranks sharing the card; (c) the engine's sharded impl.
+SHARD_WORLDS = (1, 3, 8)
+TABLE2_SHARDS = 4
+ENGINE_SHARDS = 8
+# (c) runs phase 11's first two stand-ins: with PATENTS@5.6e-4 as well,
+# phase 14 took 252-270 s, past its 240 s target.
+SHARDED_ENGINE_TENSORS = ENGINE_TENSORS[:2]
+SHARD_REPS = 5  # timed repeats per mode in (b)
+
+
+def sharded_cases():
+    """Phase 14 (a): the cases of tests/test_distributed.py (3-, 4- and
+    5-mode, uneven, a single nonzero, rank 1, one output block, fewer
+    nonzeros than shards), a restart batch and the blocked order past one
+    input band: (name, tensor, rank, batch, ordering, rows_per_block)."""
+    rng = np.random.default_rng(4)
+    one_block = tst.SparseTensor(
+        np.stack([rng.integers(0, 16, 300), rng.integers(0, 40, 300), rng.integers(0, 40, 300)],
+                 axis=1).astype(np.int32),
+        rng.standard_normal(300).astype(np.float32), (256, 40, 40))
+    moderate = tst.random_sparse_tensor((3000, 2000, 2500), 200_000, seed=2, zipf_a=0.8)
+    return [
+        ("3-mode", tst.random_sparse_tensor((97, 40, 33), 1200, seed=3), 16, None, None, 256),
+        ("3-mode, uneven", tst.random_sparse_tensor((61, 47, 33), 1201, seed=3), 16, None, None,
+         256),
+        ("4-mode", tst.random_sparse_tensor((25, 19, 13, 11), 875, seed=4), 16, None, None, 256),
+        ("5-mode", tst.random_sparse_tensor((13, 11, 9, 7, 5), 403, seed=5), 16, None, None, 256),
+        ("single nonzero", tst.SparseTensor(np.array([[5, 2, 7]], np.int32),
+                                            np.array([2.5], np.float32), (11, 6, 9)),
+         8, None, None, 256),
+        ("rank 1", tst.random_sparse_tensor((30, 20, 10), 200, seed=21), 1, None, None, 256),
+        ("one output block", one_block, 16, None, None, 256),
+        ("fewer nonzeros than shards", tst.random_sparse_tensor((40, 30, 20), 5, seed=13), 16,
+         None, None, 256),
+        ("200K nonzeros, B=4", moderate, 16, 4, None, 256),
+        ("200K nonzeros, blocked", moderate, 16, None, "blocked", 64),
+    ]
+
+
+def sharded_cases_rank(cases) -> dict:
+    """Phase 14 (a) on one rank: every case's ``mttkrp(impl="sharded")``, both
+    schemes and every mode, counted (one launch a call, and one more for
+    the residual pass of a ``mode_ordered`` partition with leftovers), then
+    held against ``mttkrp_ref`` on the card (1e-4 of each element's sum of
+    absolute terms, as ``compare``), a ``mode_ordered`` call repeated bit
+    for bit, and the rank's own launch on its shard plan against the plain
+    version (the last two cases)."""
+    from repro_torch.core.mttkrp import mttkrp, mttkrp_ref
+    from repro_torch.distributed import mttkrp_dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kmod.reset_launch_counts()  # the main path of (a) on this rank starts here
+    outs = []
+    for name, t, rank, batch, ordering, rpb in cases:
+        facs = factors_on(t.shape, rank, dev, batch=batch, seed=t.nnz)
+        for mode in range(t.nmodes):
+            for scheme in mttkrp_dist.SCHEMES:
+                got = mttkrp(t, facs, mode, impl="sharded", scheme=scheme, ordering=ordering,
+                             rows_per_block=rpb)
+                outs.append((name, t, facs, mode, scheme, ordering, rpb, got))
+    torch.cuda.synchronize()
+    launches = kmod.mttkrp_cuda.launches  # ... and ends here
+    by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    by_mode = dict(kmod.mttkrp_cuda.launches_by_mode)
+    expected = sum(1 + (mttkrp_dist.sharded_setup(t, mode, scheme=scheme, ordering=ordering,
+                                                  rows_per_block=rpb, device=dev)
+                        .leftover_plan is not None)
+                   for _, t, _, mode, scheme, ordering, rpb, _ in outs)
+    worst, repeat_equal, held = 0.0, True, []
+    for name, t, facs, mode, scheme, ordering, rpb, got in outs:
+        want = mttkrp_ref(t, facs, mode)
+        scale = mttkrp_ref(tst.SparseTensor(t.indices, np.abs(t.values), t.shape),
+                           [f.abs() for f in facs], mode)
+        ratio = (got - want).abs() / (F32_TOL * scale).clamp_min(torch.finfo(torch.float32).tiny)
+        worst = max(worst, float(ratio.max()))
+        if scheme == "mode_ordered" and name == "200K nonzeros, B=4":
+            again = mttkrp(t, facs, mode, impl="sharded", scheme=scheme, rows_per_block=rpb)
+            repeat_equal = repeat_equal and torch.equal(got, again)
+        if name.startswith("200K"):
+            setup = mttkrp_dist.sharded_setup(t, mode, scheme=scheme, ordering=ordering,
+                                              rows_per_block=rpb, device=dev)
+            held.extend(hold_setup_plans(setup, facs, dev))
+    return dict(calls=len(outs), expected=expected, launches=launches, by_variant=by_variant,
+                by_mode=by_mode, worst=worst, repeat_equal=repeat_equal,
+                plain_max_abs=max(h["max_abs"] for h in held),
+                plain_max_rel=max(h["max_rel"] for h in held),
+                plain_ok=all(h["ok"] for h in held))
+
+
+def hold_setup_plans(setup, facs, dev) -> list[dict]:
+    """One rank's setup held against the plain version: a split-kernel
+    launch over the shard's plan and one over the leftovers' plan (if any),
+    each against ``mttkrp_plan_ref`` on the same buffers (``compare``,
+    ``F32_TOL``).  These launches are not the main path's."""
+    held = []
+    for part, plan in (("shard", setup.plan), ("leftovers", setup.leftover_plan)):
+        if plan is None:
+            continue
+        bufs = ops.plan_device_buffers(plan, dev)
+        height = plan.shape[setup.mode]
+        got = kmod.mttkrp_cuda(bufs, facs, setup.mode, height)
+        max_abs, max_rel, ok = compare(bufs, facs, setup.mode, height, got, F32_TOL)
+        held.append(dict(scheme=setup.scheme, mode=setup.mode, part=part, nnz=plan.nnz_pad,
+                         max_abs=max_abs, max_rel=max_rel, ok=ok))
+    return held
+
+
+def held_line(held: list[dict]) -> str:
+    return (f"{len(held)} plans ({sum(h['part'] == 'leftovers' for h in held)} of leftovers, "
+            f"{min(h['nnz'] for h in held)}-{max(h['nnz'] for h in held)} padded nonzeros) max_abs "
+            f"{max(h['max_abs'] for h in held):.3e} max_rel {max(h['max_rel'] for h in held):.3e} "
+            f"(tol {F32_TOL:g} x scale)")
+
+
+def table2_rank(paths, shape, eager_fits, fused_fits) -> dict:
+    """Phase 14 (b) on one rank of ``TABLE2_SHARDS``: phase 3's tensor from
+    the memory-mapped files, each mode's setup in both schemes, then eager
+    (``mode_ordered`` and ``allreduce``) and fused (``mode_ordered``, B = 4)
+    CP-ALS from phase 3's seeds, each after a one-sweep warm-up; then every
+    shard plan and leftovers' plan against the plain version, with the
+    eager run's factors (phase 3's, up to rounding); then per
+    mode, one rank at a time, the local launch queued behind a ~1 ms sleep,
+    and with every rank at once
+    the collective alone and the whole call, host wall around a sync."""
+    from repro_torch.distributed import mttkrp_dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    tensor = tst.SparseTensor(np.load(paths[0], mmap_mode="r"), np.load(paths[1], mmap_mode="r"),
+                              shape)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setups = {scheme: [mttkrp_dist.sharded_setup(tensor, m, scheme=scheme, device=dev)
+                       for m in range(tensor.nmodes)] for scheme in mttkrp_dist.SCHEMES}
+    mttkrp_dist.sharded_fit_operands(tensor, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # One sweep of each run first, so that the timed runs leave out first-call
+    # costs (solver handles, the collectives' first buffers, allocator growth).
+    for scheme, restarts in (("mode_ordered", 1), ("mode_ordered", RESTARTS), ("allreduce", 1)):
+        tfused.cp_als_fused(tensor, RANK, n_iters=1, tol=0.0, seed=0, restarts=restarts,
+                            impl="sharded", scheme=scheme, device=dev)
+    torch.cuda.synchronize()
+    runs, states = {}, {}
+    kmod.reset_launch_counts()  # the main path of (b) on this rank starts here
+    for label, fn in (
+        ("eager mode_ordered", lambda: tcp.cp_als(
+            tensor, RANK, n_iters=SWEEPS, tol=0.0, seed=0, impl="sharded",
+            scheme="mode_ordered", device=dev)),
+        (f"fused mode_ordered B={RESTARTS}", lambda: tfused.cp_als_fused(
+            tensor, RANK, n_iters=SWEEPS, tol=0.0, seed=0, restarts=RESTARTS, fit_every=SWEEPS,
+            impl="sharded", scheme="mode_ordered", device=dev)),
+        ("eager allreduce", lambda: tcp.cp_als(
+            tensor, RANK, n_iters=SWEEPS, tol=0.0, seed=0, impl="sharded", scheme="allreduce",
+            device=dev)),
+    ):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        state = fn()
+        torch.cuda.synchronize()
+        runs[label] = dict(fits=np.asarray(state.fits).tolist(), s=time.perf_counter() - t0)
+        states[label] = state
+    launches = kmod.mttkrp_cuda.launches  # ... and ends here
+    by_variant = dict(kmod.mttkrp_cuda.launches_by_variant)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fitted = [f.contiguous() for f in states["eager mode_ordered"].factors]
+    held = [h for per_mode in setups.values() for setup in per_mode
+            for h in hold_setup_plans(setup, fitted, dev)]
+    # A call is one launch, and one more for a residual pass (mode_ordered's
+    # leftovers); eager and fused mode_ordered, then eager allreduce.
+    expected = SWEEPS * sum(
+        2 * (1 + (s.leftover_plan is not None)) for s in setups["mode_ordered"]) + (
+        SWEEPS * len(setups["allreduce"]))
+
+    facs = tcp.cp_init(tensor, RANK, seed=0, device=dev)
+    timing = {}
+    for scheme, per_mode in setups.items():
+        rows = []
+        for setup in per_mode:
+            local_ms = []
+            for turn in range(world):  # one rank at a time: the card is this rank's
+                torch.distributed.barrier()
+                if turn == rank:
+                    for _ in range(SHARD_REPS):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        torch.cuda._sleep(2_000_000)
+                        start.record()
+                        mttkrp_dist.local_mttkrp(setup, facs)
+                        end.record()
+                        end.synchronize()
+                        local_ms.append(start.elapsed_time(end))
+                torch.distributed.barrier()
+            block = torch.zeros((setup.rows_per if scheme == "mode_ordered" else setup.i_out,
+                                 RANK), device=dev)
+            parts = [torch.empty_like(block) for _ in range(world)]
+            coll_ms, call_ms = [], []
+            for _ in range(SHARD_REPS):
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if scheme == "mode_ordered":
+                    torch.distributed.all_gather(parts, block)
+                else:
+                    torch.distributed.all_reduce(block)
+                torch.cuda.synchronize()
+                coll_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mttkrp_dist.mttkrp_sharded_apply(setup, facs)
+                torch.cuda.synchronize()
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(dict(
+                mode=setup.mode, shard_nnz=setup.shard.nnz, height=setup.plan.shape[setup.mode],
+                leftovers=0 if setup.leftovers is None else setup.leftovers.nnz,
+                local_ms=float(np.median(local_ms)), collective_ms=float(np.median(coll_ms)),
+                call_ms=float(np.median(call_ms))))
+        timing[scheme] = rows
+    return dict(rank=rank, setup_s=setup_s, runs=runs, launches=launches, expected=expected,
+                by_variant=by_variant, timing=timing, held=held, peak_gb=peak_gb)
+
+
+def sharded_phase(dev, card: str, paths, shape, eager_fits, fused_fits, engine_fits) -> dict:
+    """Phase 14: the sharded MTTKRP and CP-ALS, one process per rank."""
+    from repro_torch.distributed import backend_for, mttkrp_dist, spawn
+
+    phase(f"phase 14: sharded MTTKRP and CP-ALS, one process per rank (worlds {SHARD_WORLDS}; "
+          f"Table II on {TABLE2_SHARDS}; the engine on {ENGINE_SHARDS}, "
+          f"{SHARDED_ENGINE_TENSORS})")
+    fit_tol = tfused.FUSED_FIT_TOL
+    launches = {}  # path -> (row-run launches, tile launches), summed over ranks
+
+    # -- (a) the cases, per world size and backend ----------------------------
+    cases = sharded_cases()
+    rows_a = tiles_a = 0
+    for world in SHARD_WORLDS:
+        backend = backend_for("cuda", world)
+        t0 = time.perf_counter()
+        results = spawn(sharded_cases_rank, world, device="cuda", backend=backend, args=(cases,))
+        wall = time.perf_counter() - t0
+        for r, res in enumerate(results):
+            check(res["launches"] == res["expected"] == res["by_variant"]["split"],
+                  f"{world} ranks, rank {r}: {res['launches']} launches for {res['calls']} calls, "
+                  f"expected {res['expected']} ({res['by_variant']})")
+            check(res["worst"] <= 1.0, f"{world} ranks, rank {r}: sharded MTTKRP off mttkrp_ref "
+                                      f"by {res['worst']:.3f}x the tolerance")
+            check(res["repeat_equal"], f"{world} ranks, rank {r}: mode_ordered not bit for bit")
+            check(res["plain_ok"], f"{world} ranks, rank {r}: the shard's launch disagrees with "
+                                   f"the plain version")
+            rows_a += res["by_mode"]["rows"]
+            tiles_a += res["by_mode"]["tiles"]
+        print(f"  (a) {world} rank(s), backend {backend} (gloo on the CPU or a shared card, NCCL "
+              f"with a card per rank): {len(cases)} cases x modes x 2 schemes, {results[0]['calls']} "
+              f"calls a rank, split launches per rank {[r['launches'] for r in results]} (expected "
+              f"{results[0]['expected']}: a call, and a residual pass where leftovers; by mode "
+              f"{results[0]['by_mode']}); worst |got - ref| / (1e-4 x sum of |terms|) "
+              f"{max(r['worst'] for r in results):.4f} (must be <= 1); mode_ordered repeat bit "
+              f"for bit equal; shard launch vs plain max_abs "
+              f"{max(r['plain_max_abs'] for r in results):.3e} max_rel "
+              f"{max(r['plain_max_rel'] for r in results):.3e} (tol {F32_TOL:g} x scale); "
+              f"{wall:.1f} s wall")
+    launches["mttkrp_sharded, 1 (NCCL) / 3 / 8 ranks (phase 14a)"] = (rows_a, tiles_a)
+
+    # -- (b) Table II, 4 ranks sharing the card ------------------------------
+    t0 = time.perf_counter()
+    results = spawn(table2_rank, TABLE2_SHARDS, device="cuda",
+                    backend=backend_for("cuda", TABLE2_SHARDS),
+                    args=(paths, shape, eager_fits, fused_fits))
+    wall_b = time.perf_counter() - t0
+    first = results[0]
+    for res in results:
+        check(res["launches"] == res["expected"] == res["by_variant"]["split"],
+              f"Table II rank {res['rank']}: {res['launches']} launches, expected {res['expected']}")
+        check(all(res["runs"][k]["fits"] == first["runs"][k]["fits"] for k in first["runs"]),
+              f"rank {res['rank']}'s fits differ from rank 0's")
+        check(all(h["ok"] for h in res["held"]),
+              f"Table II rank {res['rank']}: a shard or leftovers plan's launch disagrees with "
+              f"the plain version: {[h for h in res['held'] if not h['ok']]}")
+    want = {"eager mode_ordered": np.asarray(eager_fits),
+            f"fused mode_ordered B={RESTARTS}": np.asarray(fused_fits),
+            "eager allreduce": np.asarray(eager_fits)}
+    gaps = {}
+    print(f"  (b) NELL-2 Table II ({shape}), rank {RANK}, {TABLE2_SHARDS} ranks on the card, backend "
+          f"{backend_for('cuda', TABLE2_SHARDS)}: {wall_b:.1f} s wall; setups (both schemes, 3 "
+          f"modes) and fit blocks per rank {[round(r['setup_s'], 2) for r in results]} s host; "
+          f"split launches per rank {[r['launches'] for r in results]} (expected "
+          f"{first['expected']}, residual passes included); "
+          f"peak device memory per rank {[round(r['peak_gb'], 3) for r in results]} GB  [{card}]")
+    print(f"    every rank's plans against the plain version with the eager run's factors, both "
+          f"schemes, every mode: {held_line([h for r in results for h in r['held']])}")
+    for label, run in first["runs"].items():
+        fits = np.asarray(run["fits"])
+        gaps[label] = float(np.max(np.abs(fits - want[label])))
+        print(f"    {label}: {run['s']:.3f} s for {SWEEPS} sweeps ({run['s'] / SWEEPS * 1e3:.1f} "
+              f"ms a sweep, rank 0's wall); fits {np.round(fits, 6).tolist()}; max gap to phase "
+              f"3's single-process lex fits {gaps[label]:.3e} (tol {fit_tol})")
+        check(np.isfinite(fits).all() and gaps[label] <= fit_tol,
+              f"{label}: sharded fits differ from phase 3's by {gaps[label]}")
+    for scheme in first["timing"]:
+        for m in range(len(shape)):
+            per_rank = [r["timing"][scheme][m] for r in results]
+            print(f"    {scheme} mode {m}: shard nnz {[x['shard_nnz'] for x in per_rank]}, "
+                  f"local rows {[x['height'] for x in per_rank]}, leftovers "
+                  f"{per_rank[0]['leftovers']}; local launch alone (CUDA events, behind a sleep) "
+                  f"{[round(x['local_ms'], 4) for x in per_rank]} ms; collective alone "
+                  f"{[round(x['collective_ms'], 3) for x in per_rank]} ms wall; whole call "
+                  f"{[round(x['call_ms'], 3) for x in per_rank]} ms wall (median of {SHARD_REPS})")
+    launches[f"cp_als / cp_als_fused, impl sharded, Table II, {TABLE2_SHARDS} ranks (phase 14b)"] = (
+        sum(r["launches"] for r in results), 0)
+
+    # -- (c) the engine's sharded impl -----------------------------------------
+    spec = ExperimentSpec(tensors=SHARDED_ENGINE_TENSORS, impls=("sharded",),
+                          n_iters=ENGINE_ITERS, fused=True, n_shards=ENGINE_SHARDS, device="cuda")
+    t0 = time.perf_counter()
+    result = run_experiments(spec)
+    engine_s = time.perf_counter() - t0
+    rows_c = 0
+    for (name, scale), run in zip(SHARDED_ENGINE_TENSORS, result.runs):
+        m = run.measured
+        residual = sum(max(shares) > 0 for shares in run.residual_share)
+        expected = 3 * ENGINE_ITERS * (len(run.dims) + residual)
+        # Rank 0's setups of this run, built here as its rank built them
+        # (the same tensor, scheme and geometry), held against plain.
+        tensor = make_frostt_like(name, scale=scale, seed=spec.seed)
+        facs = factors_on(tensor.shape, RANK, dev, seed=tensor.nnz)
+        held = [h for mode in range(tensor.nmodes) for h in hold_setup_plans(
+            mttkrp_dist.build_sharded_mode_setup(tensor, mode, ENGINE_SHARDS, rank=0,
+                                                 scheme=spec.scheme, device=dev), facs, dev)]
+        check(all(h["ok"] for h in held), f"{run.key}: rank 0's plans disagree with the plain "
+                                          f"version: {[h for h in held if not h['ok']]}")
+        del tensor, facs
+        ops.clear_caches()  # the memo pins those plans' device buffers
+        per_rank = m.launches_per_rank or ()
+        gap = abs(m.fit - engine_fits[run.tensor])
+        print(f"  (c) {run.key}: {ENGINE_SHARDS} ranks, split launches per rank {list(per_rank)} "
+              f"(expected {expected}: {residual} mode(s) with a residual pass); fit {m.fit:.6f}, phase 11's kernel {engine_fits[run.tensor]:.6f}, "
+              f"gap {gap:.3e}; fused max gap {m.fused_max_fit_delta:.3e} (tol {fit_tol}); steady ms "
+              f"per mode {[round(mm.steady_s * 1e3, 3) for mm in m.modes]} (rank 0's CUDA events "
+              f"{[round(mm.steady_device_s * 1e3, 3) for mm in m.modes]}); wall eager "
+              f"{m.wall_s:.3f} s, fused cold {m.fused_wall_s:.3f} s, warm {m.fused_warm_wall_s:.3f} s; "
+              f"host s {({k: round(v, 2) for k, v in run.host_s.items()})}; max |trace - che(L)| "
+              f"{max(h.max_abs_err for h in run.hit_rates):.4f} over {len(run.hit_rates)} scenarios "
+              f"(printed, not asserted)")
+        print(f"    share of each shard's priced trace its plan does not run (the leftovers, "
+              f"run by the residual pass), max over shards per mode "
+              f"{[round(max(sh), 4) for sh in run.residual_share]}; rank 0's "
+              f"{held_line(held)}")
+        check(len(per_rank) == ENGINE_SHARDS and all(n == expected for n in per_rank),
+              f"{run.key}: split launches per rank {per_rank}, expected {expected}")
+        check(np.isfinite([m.fit, m.fused_fit]).all() and gap <= fit_tol
+              and m.fused_max_fit_delta <= fit_tol, f"{run.key}: fits off by {gap}")
+        rows_c += sum(per_rank)
+    for key, sp in result.speedup_table().items():
+        print(f"    {key}: E-SRAM -> O-SRAM speedup priced {sp['priced']:.4f} (Che "
+              f"{sp['modeled']:.4f}), energy saving {result.energy_table()[key]['priced']:.4f}")
+    print(f"  (c) engine: {engine_s:.1f} s host wall for {len(result.runs)} runs")
+    launches[f"run_experiments, impl sharded, {ENGINE_SHARDS} ranks (phase 14c)"] = (rows_c, 0)
+    return dict(launches=launches, fit_gaps=gaps, table2_s=wall_b, engine_s=engine_s,
+                table2={label: run["s"] / SWEEPS * 1e3 for label, run in first["runs"].items()},
+                timing=first["timing"], peak_gb=[r["peak_gb"] for r in results])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -2026,11 +2414,28 @@ def main() -> int:
     phase("phase 2: kernel vs plain version on the card")
     phase_kernel_cases(dev)
 
-    mttkrp_entry, nell2, lex_fits = cp_als_phases(dev, card)
+    mttkrp_entry, nell2, lex_fits, eager_fits = cp_als_phases(dev, card)
     # Phase 12's Table II part and phase 10 run here, while phase 3's tensor
     # and lex plans are resident.
     table2 = autotune_table2_phase(dev, card, nell2, lex_fits)
     ordered = ordering_phase(dev, card, nell2, lex_fits)
+    # Phase 14's ranks memory-map phase 3's tensor instead of drawing it again.
+    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_nell2_")
+    try:
+        return _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, table2,
+                                   ordered, shard_dir)
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+
+
+def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, table2, ordered,
+                        shard_dir) -> int:
+    t0 = time.perf_counter()
+    paths = (str(Path(shard_dir, "indices.npy")), str(Path(shard_dir, "values.npy")))
+    np.save(paths[0], nell2.indices)
+    np.save(paths[1], nell2.values)
+    nell2_shape = nell2.shape
+    print(f"phase 3's tensor written for phase 14's ranks in {time.perf_counter() - t0:.1f} s")
     del nell2
     gc.collect()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -2052,6 +2457,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     decoded = decode_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(dev, card, paths, nell2_shape, eager_fits, lex_fits,
+                            {t: r["fit"] for t, r in engine["runs"].items()})
     row_run = ordered["launches"].get("rows", 0)
     mttkrp_entry["launches_by_path"] = {
         "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
@@ -2062,7 +2471,8 @@ def main() -> int:
             tuned["launches_service"],
         "run_experiments(autotune=True), NELL-2@0.026 (phase 12)": tuned["launches_engine"],
         "FusedCPALS(autotune=), Table II, lex / degree (phase 12)": table2["launches"],
-        "decode_step, BatchServer (phase 13)": 0}
+        "decode_step, BatchServer (phase 13)": 0,
+        **{path: rows for path, (rows, _) in sharded["launches"].items()}}
     mttkrp_entry["launches"] = sum(mttkrp_entry["launches_by_path"].values())
     mttkrp_entry["max_abs_err"] = max(
         [mttkrp_entry["max_abs_err"], served["stacked_max_abs"], engine["max_abs"],
@@ -2087,7 +2497,6 @@ def main() -> int:
         route="cuda",
         source="src/repro_torch/kernels/mttkrp/csrc/mttkrp_split.cu",
         replaces="src/repro/kernels/mttkrp/kernel.py:44",
-        launches=ordered["launches"].get("tiles", 0),
         max_abs_err=max(r["max_abs"] for r in blocked),
         ms=sum(r["ms"] for r in blocked),
         previous_ms=sum(r["block_ms"] for r in blocked),
@@ -2106,8 +2515,10 @@ def main() -> int:
         per_mode_ms_on_lex_plans=[r["tiles_ms"] for r in ordered["results"]["lex"]["rows"]],
         grid=ordered["tile_grid"],
         sweep_profile=ordered["results"]["blocked"]["tile_split_ms"],
-        launches_by_path={"cp_als_fused, blocked (phase 10)": ordered["launches"].get("tiles", 0)},
+        launches_by_path={"cp_als_fused, blocked (phase 10)": ordered["launches"].get("tiles", 0),
+                          **{path: tiles for path, (_, tiles) in sharded["launches"].items()}},
     )
+    tile_entry = {**tile_entry, "launches": sum(tile_entry["launches_by_path"].values())}
     mttkrp_entry["engine"] = {k: engine[k] for k in (
         "runs", "ref", "speedup", "energy", "engine_s", "recon_s", "gates_s", "reorder_s")}
     mttkrp_entry["autotune"] = dict(table2={k: v for k, v in table2.items() if k != "launches"},
@@ -2115,6 +2526,8 @@ def main() -> int:
     flash_entry["launches_by_path"] = {"prefill (phase 7)": flash_entry["launches"],
                                        "decode_step, BatchServer (phase 13)": 0}
     flash_entry["decode"] = decoded
+    mttkrp_entry["sharded"] = {k: sharded[k] for k in (
+        "fit_gaps", "table2_s", "engine_s", "table2", "timing", "peak_gb")}
     mttkrp_entry["service"] = {k: served[k] for k in (
         "stats", "batch_ms", "profile_ms", "peak_gb", "stage_host_ms", "enqueue_ms", "stacked_ms",
         "stacked_plain_ms", "stacked_bound_ms")}

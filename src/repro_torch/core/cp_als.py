@@ -4,9 +4,13 @@ The counterpart of ``repro.core.cp_als``: each ALS sweep performs one
 MTTKRP per mode (the kernel under study) followed by a rank x rank
 Hadamard-of-Grams solve.  ``impl="ref"`` runs ``mttkrp_ref``;
 ``impl="kernel"`` runs the plan-based kernel family (the CUDA kernel on
-the GPU).  The per-mode update and the fit below are shared with the
-fused executor (``repro_torch.core.cp_als_fused``) and accept a leading
-restart batch dimension.
+the GPU); ``impl="sharded"`` runs one rank per shard of a
+``torch.distributed`` group (``repro_torch.distributed``), with the
+factors, Grams and solves replicated on every rank and the fit's inner
+product summed over the ranks' blocks of nonzeros.  The per-mode update
+and the fit below are shared with the fused executor
+(``repro_torch.core.cp_als_fused``) and accept a leading restart batch
+dimension.
 
 Fit is computed the standard sparse way without materializing the residual:
     ||X - X_hat||^2 = ||X||^2 - 2<X, X_hat> + ||X_hat||^2
@@ -121,6 +125,7 @@ def _fit(
     weights: torch.Tensor,
     *,
     nnz_chunk: int = FIT_NNZ_CHUNK,
+    reduce_inner: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The CP fit ``1 - ||X - X_hat|| / ||X||`` (the math of
     ``repro.core.cp_als._fit``, residual clamped at 0).
@@ -129,7 +134,9 @@ def _fit(
     tensor (factors ``(I_k, R)``, or ``(B, I_k, R)`` restarts of it), or
     ``(B, nnz, N)`` and ``(B, nnz)`` for B distinct tensors with factors
     ``(B, I_k, R)``, weights ``(B, R)`` and ``tensor_norm2`` ``(B,)``.
-    The inner product runs in chunks of ``nnz_chunk`` nonzeros.
+    The inner product runs in chunks of ``nnz_chunk`` nonzeros.  The
+    sharded path passes each rank's block of the nonzeros and
+    ``reduce_inner``, which sums the blocks' inner products over the ranks.
     """
     grams = [f.mT @ f for f in factors]
     had = grams[0]
@@ -146,6 +153,8 @@ def _fit(
         else:  # one tensor per factor set: a dot product per batch entry
             inner = inner + torch.matmul(recon.to(values.dtype).unsqueeze(-2),
                                          vals.unsqueeze(-1))[..., 0, 0]
+    if reduce_inner is not None:
+        inner = reduce_inner(inner)
     resid2 = torch.clamp(tensor_norm2 - 2.0 * inner + xhat_norm2, min=0.0)
     # An all-zero tensor has ||X|| = 0: report fit 0 instead of 0/0.
     safe_norm2 = torch.where(tensor_norm2 > 0.0, tensor_norm2, torch.ones_like(tensor_norm2))
@@ -214,12 +223,17 @@ def cp_als(
     fused: bool = False,
     fit_every: int = 1,
     restarts: int = 1,
+    scheme: str = "mode_ordered",
     verbose: bool = False,
 ) -> CPState:
     """Alternating least squares for CPD.  Returns factors + fit trace.
 
-    ``impl`` is ``"ref"`` or ``"kernel"`` (the counterpart of the JAX
-    ``impl="pallas"``).  ``mttkrp_fn(tensor, factors, mode) -> (I_mode, R)``
+    ``impl`` is ``"ref"``, ``"kernel"`` (the counterpart of the JAX
+    ``impl="pallas"``) or ``"sharded"``: collective, every rank of the
+    default process group calls it with the same arguments, each MTTKRP
+    runs in ``scheme`` (``distributed.mttkrp_dist``) and the fit's inner
+    product is summed over the ranks; it raises without a process group.
+    ``mttkrp_fn(tensor, factors, mode) -> (I_mode, R)``
     replaces the impl in the eager loop.  ``device`` defaults to ``"cuda"``
     and raises when no GPU is present.  ``dtype`` is the factor storage
     dtype; values and the tensor norm stay in
@@ -261,6 +275,7 @@ def cp_als(
             fit_every=fit_every,
             restarts=restarts,
             init_factors=inits,
+            scheme=scheme,
             verbose=verbose,
         ).state
     if restarts != 1:
@@ -281,12 +296,22 @@ def cp_als(
             init_factor_tensors(init_factors, tensor.shape, rank, device=dev, dtype=dtype)
         )
     weights = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
-    indices, values, tensor_norm2 = tensor_device_operands(
-        tensor, device=dev, dtype=compute_dtype
-    )
+    reduce_inner = None
+    if impl == "sharded":
+        from repro_torch.distributed.mttkrp_dist import all_reduce_sum, sharded_fit_operands
+
+        indices, values, tensor_norm2 = sharded_fit_operands(
+            tensor, device=dev, dtype=compute_dtype)
+        reduce_inner = all_reduce_sum
+    else:
+        indices, values, tensor_norm2 = tensor_device_operands(
+            tensor, device=dev, dtype=compute_dtype
+        )
     if mttkrp_fn is None:
         if impl == "ref":
             mttkrp_fn = lambda t, f, m: mttkrp_ref((indices, values, t.shape), f, m)  # noqa: E731
+        elif impl == "sharded":
+            mttkrp_fn = lambda t, f, m: mttkrp(t, f, m, impl=impl, scheme=scheme)  # noqa: E731
         else:
             mttkrp_fn = lambda t, f, m: mttkrp(t, f, m, impl=impl)  # noqa: E731
 
@@ -298,7 +323,8 @@ def cp_als(
             m = mttkrp_fn(tensor, factors, mode)  # (I_mode, R)
             factors, weights = _mode_update(factors, weights, m, mode)
 
-        fit = float(_fit(tensor_norm2, indices, values, factors, weights))
+        fit = float(_fit(tensor_norm2, indices, values, factors, weights,
+                         reduce_inner=reduce_inner))
         fits.append(fit)
         if verbose:
             print(f"  ALS iter {it:3d}  fit={fit:.6f}")

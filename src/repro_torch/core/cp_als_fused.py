@@ -19,8 +19,12 @@ re-association; ``FUSED_FIT_TOL`` is that tolerance, as in the JAX package.
 of one padded geometry (the service, ``repro_torch.serve``), every mode's
 MTTKRP one launch over the batch's stacked plan.  ``ordering=`` selects
 the nonzero execution order (``repro_torch.reorder``) and ``autotune=``
-takes the plan geometry from a tuner (``repro_torch.dse.autotune``); the
-sharded executor is not ported yet.
+takes the plan geometry from a tuner (``repro_torch.dse.autotune``).
+``impl="sharded"`` runs the executor on every rank of a
+``torch.distributed`` group: each mode's ``ShardedModeSetup`` (the rank's
+shard plan on its device) is built once at construction, each MTTKRP is
+the rank's split-kernel launch and a collective in ``scheme``, and the fit
+sums the ranks' inner products; factors, Grams and solves are replicated.
 """
 
 from __future__ import annotations
@@ -105,6 +109,7 @@ class FusedCPALS:
         tile_nnz: int = 256,
         rows_per_block: int = 256,
         ordering: str | None = None,
+        scheme: str = "mode_ordered",
         autotune=None,
     ) -> None:
         # ``autotune`` is duck-typed (``config_for(tensor, rank) -> cfg``
@@ -131,11 +136,27 @@ class FusedCPALS:
         self.dtype = dtype
         self.nmodes = tensor.nmodes
         compute_dtype = torch.promote_types(dtype, torch.float32)
-        # Fit operands: the raw COO stream, as the eager driver reads it.
-        self._indices, self._values, self._norm2 = tensor_device_operands(
-            tensor, device=self.device, dtype=compute_dtype
-        )
         self.ordering = ordering
+        self.scheme = scheme
+        self._reduce_inner = None
+        if impl == "sharded":
+            from repro_torch.distributed import mttkrp_dist  # circular import
+
+            # Fit operands: this rank's block of the raw COO stream.
+            self._indices, self._values, self._norm2 = mttkrp_dist.sharded_fit_operands(
+                tensor, device=self.device, dtype=compute_dtype)
+            self._reduce_inner = mttkrp_dist.all_reduce_sum
+            self._setups = [
+                mttkrp_dist.sharded_setup(
+                    tensor, m, scheme=scheme, ordering=ordering, rows_per_block=rows_per_block,
+                    tile_nnz=tile_nnz, device=self.device)
+                for m in range(self.nmodes)
+            ]
+        else:
+            # Fit operands: the raw COO stream, as the eager loop reads it.
+            self._indices, self._values, self._norm2 = tensor_device_operands(
+                tensor, device=self.device, dtype=compute_dtype
+            )
         if impl == "ref":
             # Per-mode ordered COO streams when a strategy is asked for; the
             # fit's stream for every mode otherwise.
@@ -146,7 +167,7 @@ class FusedCPALS:
                     o = nonzero_order_tensor(self._indices, tensor.shape, m, ordering,
                                              rows_per_block=rows_per_block)
                     self._ref_streams[m] = (self._indices[o], self._values[o])
-        else:
+        elif impl == "kernel":
             self._plans = [
                 get_plan(tensor, m, tile_nnz=tile_nnz, rows_per_block=rows_per_block,
                          ordering="lex" if ordering is None else ordering,
@@ -161,6 +182,10 @@ class FusedCPALS:
         if self.impl == "ref":
             indices, values = self._ref_streams[mode]
             return mttkrp_ref((indices, values, self.tensor.shape), factors, mode)
+        if self.impl == "sharded":
+            from repro_torch.distributed.mttkrp_dist import mttkrp_sharded_apply
+
+            return mttkrp_sharded_apply(self._setups[mode], factors)
         return mttkrp_from_plan(self._plans[mode], factors)
 
     def _sweeps(self, factors, weights, length: int):
@@ -170,7 +195,8 @@ class FusedCPALS:
             for mode in range(self.nmodes):
                 m = self._mttkrp(factors, mode)
                 factors, weights = _mode_update(factors, weights, m, mode)
-            fits.append(_fit(self._norm2, self._indices, self._values, factors, weights))
+            fits.append(_fit(self._norm2, self._indices, self._values, factors, weights,
+                             reduce_inner=self._reduce_inner))
         return factors, weights, torch.stack(fits, dim=-1)
 
     def run(
@@ -381,10 +407,12 @@ def cp_als_fused(
     init_factors: Sequence[Sequence] | None = None,
     verbose: bool = False,
     autotune=None,
+    scheme: str = "mode_ordered",
 ) -> BatchedCPState:
     """One-shot fused CP-ALS (build the executor, run once).
 
-    ``cp_als(..., fused=True)`` wraps this and returns ``.state``.
+    ``cp_als(..., fused=True)`` wraps this and returns ``.state``;
+    ``scheme`` is the ``impl="sharded"`` executor's.
     """
     executor = FusedCPALS(
         tensor,
@@ -395,6 +423,7 @@ def cp_als_fused(
         tile_nnz=tile_nnz,
         rows_per_block=rows_per_block,
         ordering=ordering,
+        scheme=scheme,
         autotune=autotune,
     )
     return executor.run(

@@ -1,12 +1,15 @@
 """Mode-wise sparse MTTKRP — the paper's Algorithm 1 as a PyTorch API.
 
-The counterpart of ``repro.core.mttkrp``.  Two execution paths:
+The counterpart of ``repro.core.mttkrp``.  Three execution paths:
 
   * ``mttkrp_ref``  — gather, Hadamard product, ``index_add_`` (the oracle);
   * ``impl="kernel"`` — the plan-based kernel family
     (``repro_torch.kernels.mttkrp``), the counterpart of the JAX
     ``impl="pallas"``: the hand-written CUDA kernel on CUDA tensors, its
-    plain PyTorch version on CPU tensors.
+    plain PyTorch version on CPU tensors;
+  * ``impl="sharded"`` — one rank per shard of a ``torch.distributed``
+    group, each rank's shard through the kernel family
+    (``repro_torch.distributed.mttkrp_dist``).
 
 For a tensor with |T| nonzeros, N modes and rank R the per-mode cost is
 ``N * |T| * R`` flop-pairs (paper §IV-A).
@@ -25,7 +28,7 @@ from repro_torch.kernels.mttkrp.ops import mttkrp_kernel
 
 __all__ = ["IMPLS", "check_impl", "dense_mttkrp_oracle", "khatri_rao", "mttkrp", "mttkrp_ref"]
 
-IMPLS = ("ref", "kernel")
+IMPLS = ("ref", "kernel", "sharded")
 
 # Ordered-view memo of the ref path: the strategy's sort runs once per
 # (tensor, mode, ordering), not on every CP-ALS call.
@@ -49,11 +52,6 @@ def _ordered_ref_view(
 
 def check_impl(impl: str) -> None:
     """Raise unless ``impl`` is one of the ported implementations."""
-    if impl == "sharded":
-        raise NotImplementedError(
-            "impl='sharded' is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "'distributed/mttkrp_dist on torch.distributed')"
-        )
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
 
@@ -107,18 +105,26 @@ def mttkrp(
     ordering: str | None = None,
     **kwargs,
 ) -> torch.Tensor:
-    """Dispatching front-end. ``impl`` in {"ref", "kernel"}.
+    """Dispatching front-end. ``impl`` in {"ref", "kernel", "sharded"}.
 
     ``"kernel"`` is the counterpart of the JAX ``impl="pallas"``: the
     plan-based kernel family (``kernels.mttkrp.ops.mttkrp_kernel``), which
     takes ``tile_nnz=``, ``rows_per_block=`` and ``plan=`` through
-    ``kwargs``.  ``ordering`` selects the nonzero execution order
-    (``repro_torch.reorder``) for both: the ref path gathers in the
-    permuted COO order, the kernel path linearizes its plan with it.  Pure
-    execution orders only: a relabeling (``reorder_tensor``) needs factor
-    perms and stays with the caller.
+    ``kwargs``.  ``"sharded"`` is collective over a process group
+    (``distributed.mttkrp_dist.mttkrp_sharded``, which takes ``scheme=``,
+    ``group=`` and ``rows_per_block=``); without one it raises.
+    ``ordering`` selects the nonzero execution order
+    (``repro_torch.reorder``) for all three: the ref path gathers in the
+    permuted COO order, the kernel path linearizes its plan with it, each
+    shard lays its nonzeros out in it.  Pure execution orders only: a
+    relabeling (``reorder_tensor``) needs factor perms and stays with the
+    caller.
     """
     check_impl(impl)
+    if impl == "sharded":
+        from repro_torch.distributed.mttkrp_dist import mttkrp_sharded  # circular import
+
+        return mttkrp_sharded(tensor, factors, mode, ordering=ordering, **kwargs)
     if impl == "ref":
         if ordering is not None:
             tensor = _ordered_ref_view(tensor, mode, ordering, factors[0].device)

@@ -185,6 +185,7 @@ def build_mttkrp_plan(
     rows_per_block: int = 256,
     ordering: str = "lex",
     device: str | torch.device = DEFAULT_DEVICE,
+    order: np.ndarray | None = None,
 ) -> MTTKRPPlan:
     """Linearize nonzeros for mode-ordered execution (paper Algorithm 1).
 
@@ -200,13 +201,35 @@ def build_mttkrp_plan(
          point at the block's first row — they contribute nothing);
       4. blocks with no nonzeros get one all-padding tile, so every output
          block is visited and stored.
+
+    ``order`` replaces step 1 with the caller's execution permutation,
+    which ``ordering`` then names: the sharded path passes a shard's own
+    layout, so that its plan runs the nonzeros in the order its trace
+    reports.  The order must keep the named ordering's primary key, the
+    output row for ``ROW_CONTIGUOUS_ORDERINGS`` and the output block for
+    ``blocked``; that is checked.
     """
     if not (0 <= mode < tensor.nmodes):
         raise ValueError(f"mode {mode} out of range for {tensor.nmodes}-mode tensor")
     i_out = tensor.shape[mode]
     num_blocks = max(1, -(-i_out // rows_per_block))
 
-    if ordering == "lex":
+    if order is not None:
+        from repro_torch.reorder.strategies import ORDERINGS, ROW_CONTIGUOUS_ORDERINGS
+
+        if ordering not in ORDERINGS:
+            raise ValueError(f"unknown ordering strategy {ordering!r}; known: {ORDERINGS}")
+        order = np.asarray(order)
+        if order.shape != (tensor.nnz,):
+            raise ValueError(f"order of shape {order.shape} for {tensor.nnz} nonzeros")
+        key = tensor.indices[order, mode]
+        if ordering not in ROW_CONTIGUOUS_ORDERINGS:
+            key = key // rows_per_block
+        if np.any(key[1:] < key[:-1]):
+            unit = "row" if ordering in ROW_CONTIGUOUS_ORDERINGS else "block"
+            raise ValueError(f"order does not keep the output {unit} as the primary key "
+                             f"of ordering {ordering!r}")
+    elif ordering == "lex":
         order = np.argsort(tensor.indices[:, mode], kind="stable")
     else:
         from repro_torch.reorder.strategies import nonzero_order  # circular import

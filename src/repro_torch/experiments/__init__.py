@@ -1,7 +1,8 @@
 """End-to-end experiment engine (DESIGN.md §7), the port of ``repro.experiments``.
 
 Executes real CP-ALS sweeps on scaled FROSTT tensors through each MTTKRP
-impl (``ref``, and ``kernel``: the split CUDA kernel on the card),
+impl (``ref``; ``kernel``: the split CUDA kernel on the card; ``sharded``:
+one rank per shard, each shard through the split kernel),
 captures per-mode times, the closed-form cost and executed-order exact
 cache traces, prices the same runs on all four memory stacks via the DSE
 evaluator, and reconciles measured against modeled:
@@ -15,10 +16,11 @@ evaluator, and reconciles measured against modeled:
     (``CONTROLLER_RECON_TOL``), the Che-vs-trace gate one layer down, and
     ``controller_gates``, the paper bands and the ordering gate;
 
-``repro.experiments.worker`` (the sharded measurement's subprocess) comes
-with the sharded impl (ROADMAP.md Queue 1 item 8).  Driven by
-``python -m repro_torch.experiments`` on the CPU and by ``chip_smoke.py``
-phase 11 on the card.
+  * ``repro_torch.experiments.worker`` — the sharded measurement's worker
+    process, which starts one rank per shard.
+
+Driven by ``python -m repro_torch.experiments`` on the CPU and by
+``chip_smoke.py`` phases 11 and 14 on the card.
 """
 
 from repro_torch.experiments.engine import (

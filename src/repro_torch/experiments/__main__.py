@@ -6,12 +6,17 @@ technologies, prints the measured-vs-modeled report and writes the
 ``BENCH_experiments.json``-shaped payload (by default to
 ``BENCH_experiments_torch.json``, which git ignores).  The arguments are
 those of the JAX package's ``scripts/run_experiments.py``, plus
-``--device``; ``--autotune`` tunes each tensor's plan geometry on
-``--device`` before its kernel cells.
+``--device`` and ``--n-shards`` (the ``sharded`` impl's ranks, which run
+in a worker process; its scheme is ``ExperimentSpec.scheme``'s default);
+``--autotune`` tunes each tensor's plan geometry on ``--device`` before
+its kernel cells.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.experiments --device cpu \\
         --tensors NELL-2@1e-4 --impls ref,kernel --iters 2 \\
+        --out /tmp/BENCH_experiments_torch.json
+    PYTHONPATH=src python -m repro_torch.experiments --device cpu \\
+        --tensors NELL-2@1e-4 --impls sharded --n-shards 4 --iters 2 \\
         --out /tmp/BENCH_experiments_torch.json
 
 Exits nonzero if any priced scenario's exact-trace hit rate disagrees
@@ -25,12 +30,12 @@ import json
 import time
 from pathlib import Path
 
+from repro_torch.core.mttkrp import IMPLS
 from repro_torch.data.frostt import FROSTT_TENSORS, PAPER_RANK
 from repro_torch.data.synthetic_tensors import EXPERIMENT_SCALES
 from repro_torch.experiments import ExperimentSpec, run_experiments
 from repro_torch.perf.report import experiments_report_md
 
-IMPLS = ("ref", "kernel")
 # Not BENCH_experiments.json: that is the JAX package's committed artifact.
 DEFAULT_OUT = "BENCH_experiments_torch.json"
 
@@ -73,7 +78,13 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--impls",
         default=",".join(IMPLS),
-        help="comma list from {ref,kernel} (sharded: ROADMAP.md Queue 1 item 8)",
+        help="comma list from {ref,kernel,sharded}",
+    )
+    ap.add_argument(
+        "--n-shards",
+        type=int,
+        default=8,
+        help="ranks of the sharded impl, one process each (on the card they share it)",
     )
     ap.add_argument("--rank", type=int, default=PAPER_RANK)
     ap.add_argument("--iters", type=int, default=3, help="CP-ALS iterations")
@@ -121,11 +132,6 @@ def main(argv: list[str] | None = None) -> int:
             "(choose with --device)"
         )
     impls = tuple(i.strip() for i in args.impls.split(",") if i.strip())
-    if "sharded" in impls:
-        raise SystemExit(
-            "impl 'sharded' is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "'distributed/mttkrp_dist on torch.distributed')"
-        )
     unknown = [i for i in impls if i not in IMPLS]
     if unknown:
         raise SystemExit(f"unknown impls {unknown}; known: {list(IMPLS)}")
@@ -136,6 +142,7 @@ def main(argv: list[str] | None = None) -> int:
         rank=args.rank,
         n_iters=args.iters,
         seed=args.seed,
+        n_shards=args.n_shards,
         cost_analysis=not args.no_cost_analysis,
         fused=not args.no_fused,
         fit_every=args.fit_every,

@@ -8,10 +8,12 @@ and reconciles them (DESIGN.md §7):
   1. materialize every requested FROSTT spec at a configurable scale
      (``repro_torch.data.synthetic_tensors``);
   2. execute full CP-ALS sweeps through each impl (``ref`` and
-     ``kernel``, on ``device``; on the card every ``kernel`` call is one
-     launch of the split MTTKRP kernel), collecting per-mode times, the
-     closed-form cost and exact LRU hit rates over the impl's executed
-     nonzero order (``repro_torch.experiments.measure``);
+     ``kernel`` in this process, on ``device``; on the card every
+     ``kernel`` call is one launch of the split MTTKRP kernel; ``sharded``
+     in a worker process, ``repro_torch.experiments.worker``, that starts
+     ``n_shards`` ranks, each shard through the split kernel), collecting
+     per-mode times, the closed-form cost and exact LRU hit rates over the
+     impl's executed nonzero order (``repro_torch.experiments.measure``);
   3. price the same runs on all four memory stacks — E-SRAM, O-SRAM,
      TPU-v5e, photonic IMC — twice through the DSE evaluator: once with
      the measured executed-order hit rates (``ExecutedTraceHitRates``)
@@ -24,14 +26,18 @@ records their host seconds (``RunResult.host_s``).  With
 ``ExperimentSpec(autotune=True)`` each tensor's plan geometry is tuned
 first (``repro_torch.dse.autotune``, on ``device``) and its ``kernel``
 cells are measured and traced at the winner's ``(tile_nnz,
-rows_per_block)``.  The sharded impl (ROADMAP.md Queue 1 item 8) is not
-ported.  ``python -m repro_torch.experiments`` drives this.
+rows_per_block)``.  ``python -m repro_torch.experiments`` drives this.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 from typing import Callable, Sequence
 
 import torch
@@ -46,6 +52,7 @@ from repro_torch.data.synthetic_tensors import (
     scaled_characteristics,
 )
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.mttkrp_dist import SCHEMES, residual_shares
 from repro_torch.dse import Autotuner, evaluate_sweep, tech_comparison
 from repro_torch.experiments.measure import (
     ExecutedTraceHitRates,
@@ -78,12 +85,15 @@ class ExperimentSpec:
     """One experiment-engine invocation (tensors × impls × technologies)."""
 
     tensors: tuple[tuple[str, float], ...] = tuple(EXPERIMENT_SCALES.items())
-    # "ref" (mttkrp_ref) and "kernel" (the split CUDA kernel on the card,
-    # the counterpart of JAX's "pallas"); "sharded" raises (Queue 1 item 8).
-    impls: tuple[str, ...] = ("ref", "kernel")
+    # "ref" (mttkrp_ref), "kernel" (the split CUDA kernel on the card, the
+    # counterpart of JAX's "pallas") and "sharded" (n_shards ranks in a
+    # worker process, each shard through the split kernel).
+    impls: tuple[str, ...] = ("ref", "kernel", "sharded")
     rank: int = PAPER_RANK
     n_iters: int = 3
     seed: int = 0
+    n_shards: int = 8
+    scheme: str = "mode_ordered"  # sharded partitioning scheme
     # Nonzero execution-order strategies to measure + price per run
     # (repro_torch.reorder, DESIGN.md §10).  ``None`` is the impl-native
     # order (raw COO for ref, lex plan for kernel).  The degree strategy
@@ -109,6 +119,21 @@ class ExperimentSpec:
     def __post_init__(self):
         for impl in self.impls:
             check_impl(impl)
+        if self.scheme not in SCHEMES:
+            raise ValueError(f"unknown scheme {self.scheme!r}; expected one of {SCHEMES}")
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if "sharded" in self.impls and self.scheme == "allreduce" and None in self.orderings:
+            # The trace of that pair is each shard's block in raw COO order,
+            # but a plan runs its nonzeros grouped by output block, so the
+            # block runs lex-sorted: the engine would price hit rates that
+            # no run produced.
+            raise ValueError(
+                "impl 'sharded' with scheme='allreduce' needs an explicit ordering: the "
+                "native (None) order's trace is the raw COO block, which the split "
+                "kernel's plan cannot run in that order; pass orderings=('lex',) or "
+                "another strategy"
+            )
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -191,6 +216,10 @@ class RunResult:
     # (their exact LRU simulation), "price" (the rest of the trace-priced
     # sweep) and "reconcile" (the Che comparison).
     host_s: dict = dataclasses.field(default_factory=dict)
+    # ``sharded`` under ``mode_ordered``: per mode, per shard, the share of
+    # the shard's priced trace that its plan does not run (its leftovers,
+    # which the residual pass runs on every rank); None otherwise.
+    residual_share: tuple[tuple[float, ...], ...] | None = None
 
     @property
     def key(self) -> str:
@@ -221,6 +250,8 @@ class RunResult:
             "hit_rates": [h.to_dict() for h in self.hit_rates],
             "all_within_tol": self.all_within_tol,
             "host_s": dict(self.host_s),
+            **({} if self.residual_share is None
+               else {"residual_share": [list(s) for s in self.residual_share]}),
         }
 
 
@@ -306,16 +337,54 @@ def _shares(values: Sequence[float]) -> tuple[float, ...]:
     return tuple(v / total for v in values)
 
 
+def _measure_sharded_subprocess(
+    spec: ExperimentSpec, name: str, scale: float, tensor_name: str, ordering: str | None
+) -> MeasuredRun:
+    """The sharded measurement, in a worker process that starts the ranks.
+
+    The worker re-materializes the tensor from (name, scale, seed),
+    re-applying the ordering's relabeling, and reports rank 0's measured
+    run as JSON; a failed worker raises with its stderr.
+    """
+    src_dir = Path(__file__).resolve().parents[2]
+    payload = json.dumps({
+        "name": name,
+        "scale": scale,
+        "tensor_name": tensor_name,
+        "rank": spec.rank,
+        "n_iters": spec.n_iters,
+        "seed": spec.seed,
+        "scheme": spec.scheme,
+        "ordering": ordering,
+        "devices": spec.n_shards,
+        "device": spec.device,
+        "cost_analysis": spec.cost_analysis,
+        "fused": spec.fused,
+        "fit_every": spec.fit_every,
+    })
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(src_dir) + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments.worker"],
+        input=payload, capture_output=True, text=True, env=env, timeout=1800,
+    )
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"sharded worker failed ({res.returncode}) for {tensor_name}:\n{res.stderr[-4000:]}")
+    last = [ln for ln in res.stdout.splitlines() if ln.strip()][-1]
+    return MeasuredRun.from_dict(json.loads(last))
+
+
 def _reconcile_hit_rates(
     trace_cache: ExecutedTraceHitRates, ft: FrosttTensor, rank: int
 ) -> tuple[HitRateReconciliation, ...]:
+    n_units = trace_cache.n_shards if trace_cache.impl == "sharded" else 1
     out = []
     for key, stats in sorted(trace_cache.stats.items()):
         geometry, mode = trace_cache.geometries[key]
         # Every input factor sees the same access count (one gather per
-        # real nonzero) in its one cache unit, so one trace length covers
-        # the scenario.
-        trace_length = float(stats[0].accesses)
+        # real nonzero), so one per-unit trace length covers the scenario.
+        trace_length = stats[0].accesses / n_units
         che_transient = split_capacity_hit_rates(
             ft,
             mode,
@@ -357,7 +426,8 @@ def run_experiments(
     ``first_call_hook(tensor, impl, mode, factors, out)``, when given, sees
     each run's first MTTKRP call per mode (``measure_cp_als``); the card
     check holds the kernel against its plain version there.  Its seconds
-    are left out of the measured walls and of ``host_s["measure"]``.
+    are left out of the measured walls and of ``host_s["measure"]``.  The
+    ``sharded`` runs happen in the worker's ranks, out of the hook's reach.
     """
     device = resolve_device(spec.device)
     runs: list[RunResult] = []
@@ -391,26 +461,31 @@ def run_experiments(
                         _s[0] += time.perf_counter() - h0
 
                 t0 = time.perf_counter()
-                measured = measure_cp_als(
-                    exec_tensor,
-                    name=ft.name,
-                    rank=spec.rank,
-                    n_iters=spec.n_iters,
-                    impl=impl,
-                    seed=spec.seed,
-                    tile_nnz=tile_nnz,
-                    rows_per_block=rows_per_block,
-                    ordering=ordering,
-                    cost_analysis=spec.cost_analysis,
-                    fused=spec.fused,
-                    fit_every=spec.fit_every,
-                    device=device,
-                    first_call_hook=hook,
-                )
+                if impl == "sharded":
+                    measured = _measure_sharded_subprocess(spec, name, scale, ft.name, ordering)
+                else:
+                    measured = measure_cp_als(
+                        exec_tensor,
+                        name=ft.name,
+                        rank=spec.rank,
+                        n_iters=spec.n_iters,
+                        impl=impl,
+                        seed=spec.seed,
+                        tile_nnz=tile_nnz,
+                        rows_per_block=rows_per_block,
+                        ordering=ordering,
+                        cost_analysis=spec.cost_analysis,
+                        fused=spec.fused,
+                        fit_every=spec.fit_every,
+                        device=device,
+                        first_call_hook=hook,
+                    )
                 measure_s = time.perf_counter() - t0 - hook_s[0]
                 trace_cache = ExecutedTraceHitRates(
                     exec_tensor,
                     impl,
+                    scheme=spec.scheme,
+                    n_shards=spec.n_shards,
                     tile_nnz=tile_nnz,
                     rows_per_block=rows_per_block,
                     ordering=ordering,
@@ -444,6 +519,12 @@ def run_experiments(
                 hit_rates = _reconcile_hit_rates(trace_cache, ft, spec.rank)
                 reconcile_s = time.perf_counter() - t0
                 traced_s = trace_cache.capture_s + trace_cache.simulate_s
+                residual = None
+                if impl == "sharded" and spec.scheme == "mode_ordered":
+                    residual = tuple(
+                        tuple(float(x) for x in residual_shares(exec_tensor, m, spec.n_shards))
+                        for m in range(exec_tensor.nmodes)
+                    )
                 runs.append(
                     RunResult(
                         frostt=name,
@@ -463,6 +544,7 @@ def run_experiments(
                             "price": priced_s - traced_s,
                             "reconcile": reconcile_s,
                         },
+                        residual_share=residual,
                     )
                 )
     return ExperimentResult(spec=spec, runs=runs)

@@ -13,8 +13,9 @@ MTTKRP impl and capture, per mode,
     the bytes the function must move (``mttkrp_bytes``).  The JAX package
     reads XLA's ``cost_analysis()`` here; the port compiles nothing it
     could ask, so its numbers are the closed form by construction;
-  * the EXECUTED nonzero order: the raw COO order for ``ref`` and the
-    plan linearization for ``kernel`` (``MTTKRPPlan.executed_row_trace``),
+  * the EXECUTED nonzero order: the raw COO order for ``ref``, the plan
+    linearization for ``kernel`` (``MTTKRPPlan.executed_row_trace``) and
+    one stream per shard for ``sharded`` (the paper's per-PE caches),
     simulated exactly against any ``CacheGeometry`` through
     ``repro_torch.core.cache_sim.simulate_traces``.  The plan order is the
     modelled FPGA's stream (Algorithm 1).  The CUDA kernel reads that
@@ -25,7 +26,10 @@ The impls are ``"ref"`` (``mttkrp_ref`` over the COO stream, uploaded
 once) and ``"kernel"`` (the counterpart of JAX's ``"pallas"``: the
 per-mode plans are built once, and on CUDA tensors every call is one
 launch of the split kernel, in its row-run mode or, for a ``blocked``
-plan, its tile mode).  ``"sharded"`` raises (ROADMAP.md Queue 1 item 8).
+plan, its tile mode).  ``"sharded"`` is measured on every rank of a
+``torch.distributed`` group (``repro_torch.experiments.worker`` starts
+them): each call is the rank's split-kernel launch over its shard's plan
+and the collective, timed on that rank.
 
 ``ExecutedTraceHitRates`` packages the traces as a drop-in
 ``HitRateCache``, so the DSE evaluator prices the measured runs on every
@@ -49,7 +53,9 @@ from repro_torch.core.mttkrp import check_impl, mttkrp, mttkrp_ref
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.data.frostt import FrosttTensor
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.mttkrp_dist import partition_by_output_rows
 from repro_torch.dse.evaluator import HitRateCache, geometry_sim_config
+from repro_torch.kernels.mttkrp.kernel import mttkrp_cuda
 from repro_torch.kernels.mttkrp.ops import get_plan, tensor_device_operands
 from repro_torch.reorder.strategies import nonzero_order, nonzero_order_tensor
 
@@ -79,7 +85,8 @@ class MeasuredMode:
     bytes_accessed: float | None  # mttkrp_bytes; None without cost_analysis
     paper_flops: float  # closed form 2·N·|T|·R (§IV-A)
     # Median CUDA-event time of the post-first calls (the first's alone if
-    # there is one call); None off the card.
+    # there is one call); None off the card.  For ``sharded``, the call on
+    # this rank: its local launch and the collective.
     steady_device_s: float | None = None
 
     def to_dict(self) -> dict:
@@ -111,6 +118,9 @@ class MeasuredRun:
     fused_warm_wall_s: float | None = None
     fused_fit: float | None = None
     fused_max_fit_delta: float | None = None
+    # ``sharded`` on the card: each rank's split-kernel launches over the
+    # measured run (eager and fused), in rank order; None otherwise.
+    launches_per_rank: tuple[int, ...] | None = None
 
     @property
     def steady_mode_s(self) -> tuple[float, ...]:
@@ -168,9 +178,10 @@ def mode_cost_analysis(
     """(flops, bytes) of one mode's MTTKRP in closed form.
 
     Flops are the paper's ``2·N·|T|·R``; bytes are ``mttkrp_bytes`` over
-    the stream the impl reads: the COO nonzeros for ``ref``, the padded
-    plan of the measured geometry (its plan, from the memo) for
-    ``kernel``.  ``device`` sorts an ordered plan.
+    the stream the impl reads: the COO nonzeros for ``ref`` and
+    ``sharded`` (over all its shards), the padded plan of the measured
+    geometry (its plan, from the memo) for ``kernel``.  ``device`` sorts
+    an ordered plan.
     """
     check_impl(impl)
     flops = 2.0 * tensor.nmodes * tensor.nnz * rank
@@ -207,6 +218,7 @@ def measure_cp_als(
     fit_every: int = 1,
     device: str | torch.device = DEFAULT_DEVICE,
     first_call_hook: Callable | None = None,
+    scheme: str = "mode_ordered",
 ) -> MeasuredRun:
     """Run CP-ALS with an instrumented MTTKRP and collect per-mode timings.
 
@@ -230,13 +242,17 @@ def measure_cp_als(
     given, sees each mode's first call after it was timed (the card check
     holds the kernel against its plain version there); its seconds, up to
     a ``torch.cuda.synchronize()`` after it, are left out of ``wall_s``.
+
+    ``impl="sharded"`` is collective: every rank of the default process
+    group calls it with the same arguments, each MTTKRP runs in ``scheme``
+    and each rank times its own calls (the collective included).
     """
     check_impl(impl)
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     init_factors = cp_init(tensor, rank, seed=seed, device=dev)
-    indices, values, _ = tensor_device_operands(tensor, device=dev)
     if impl == "ref":
+        indices, values, _ = tensor_device_operands(tensor, device=dev)
         streams = {m: (indices, values) for m in range(tensor.nmodes)}
         if ordering is not None:
             for m in range(tensor.nmodes):
@@ -248,6 +264,12 @@ def measure_cp_als(
         def base(t, f, m):
             i_m, v_m = streams[m]
             return mttkrp_ref((i_m, v_m, t.shape), f, m)
+
+    elif impl == "sharded":
+
+        def base(t, f, m):
+            return mttkrp(t, f, m, impl="sharded", scheme=scheme, ordering=ordering,
+                          rows_per_block=rows_per_block)
 
     else:
         plans = {
@@ -295,6 +317,7 @@ def measure_cp_als(
             hook_s += time.perf_counter() - h0
         return out
 
+    launches0 = mttkrp_cuda.launches
     t0 = time.perf_counter()
     state = cp_als(
         tensor,
@@ -302,6 +325,8 @@ def measure_cp_als(
         n_iters=n_iters,
         tol=0.0,
         seed=seed,
+        impl=impl,
+        scheme=scheme,
         mttkrp_fn=timed,
         device=dev,
         init_factors=init_factors,
@@ -345,6 +370,7 @@ def measure_cp_als(
             tile_nnz=tile_nnz,
             rows_per_block=rows_per_block,
             ordering=ordering,
+            scheme=scheme,
         )
         executor.run(n_iters=n_iters, tol=0.0, fit_every=fit_every, init_factors=[init_factors])
         if on_card:
@@ -361,6 +387,12 @@ def measure_cp_als(
         fused_delta = float(
             np.max(np.abs(np.asarray(warm.state.fits) - np.asarray(state.fits)))
         )
+    launches = None
+    if impl == "sharded" and on_card:
+        count = torch.tensor([mttkrp_cuda.launches - launches0], device=dev)
+        parts = [torch.empty_like(count) for _ in range(torch.distributed.get_world_size())]
+        torch.distributed.all_gather(parts, count)
+        launches = tuple(int(c) for c in torch.cat(parts).tolist())
 
     return MeasuredRun(
         tensor=name,
@@ -375,6 +407,7 @@ def measure_cp_als(
         fused_warm_wall_s=fused_warm,
         fused_fit=fused_fit,
         fused_max_fit_delta=fused_delta,
+        launches_per_rank=launches,
     )
 
 
@@ -388,6 +421,8 @@ def executed_input_traces(
     impl: str,
     mode: int,
     *,
+    scheme: str = "mode_ordered",
+    n_shards: int = 8,
     tile_nnz: int = 256,
     rows_per_block: int = 256,
     ordering: str | None = None,
@@ -395,12 +430,15 @@ def executed_input_traces(
 ) -> dict[int, list[np.ndarray]]:
     """Per input factor ``k``, the row-index streams ``impl`` accesses.
 
-    One array per independent cache unit, and each impl here has one: the
-    raw COO order for ``ref`` (the ref impl never reorders) and the plan's
-    mode-ordered linearization for ``kernel``, the modelled FPGA's stream
-    (module docstring).  Padding gathers are EXCLUDED: they fetch only a
-    block's first row, do no useful work, and would inflate the measured
-    reuse the reconciliation compares against the model.
+    One array per independent cache unit: a single stream for ``ref`` (the
+    raw COO order; the ref impl never reorders) and ``kernel`` (the plan's
+    mode-ordered linearization, the modelled FPGA's stream, module
+    docstring), one stream per shard for ``sharded``: a private slice of
+    the mode-sorted stream under ``mode_ordered`` (the paper's per-PE
+    caches), or a contiguous block of the raw order under ``allreduce``.
+    Padding gathers are EXCLUDED: they fetch only a block's first row, do
+    no useful work, and would inflate the measured reuse the
+    reconciliation compares against the model.
 
     ``ordering`` selects an explicit execution-order strategy
     (``repro_torch.reorder``, sorted on ``device``): the ref stream
@@ -410,13 +448,26 @@ def executed_input_traces(
     """
     check_impl(impl)
     inputs = [k for k in range(tensor.nmodes) if k != mode]
+    if impl in ("ref", "sharded"):
+        order = None
+        if ordering is not None:
+            order = nonzero_order(
+                tensor, mode, ordering, rows_per_block=rows_per_block, device=device
+            )
     if impl == "ref":
-        if ordering is None:
+        if order is None:
             return {k: [tensor.indices[:, k]] for k in inputs}
-        order = nonzero_order(
-            tensor, mode, ordering, rows_per_block=rows_per_block, device=device
-        )
         return {k: [tensor.indices[order, k]] for k in inputs}
+    if impl == "sharded":
+        if scheme == "allreduce":
+            # The equal blocks of the raw (or strategy) order that
+            # mttkrp_sharded gives each shard (the last one short).
+            idx = tensor.indices if order is None else tensor.indices[order]
+            per = -(-tensor.nnz // n_shards)
+            bounds = [min(i * per, tensor.nnz) for i in range(n_shards + 1)]
+            return {k: [idx[a:b, k] for a, b in zip(bounds[:-1], bounds[1:])] for k in inputs}
+        idx_s, val_s, _ = partition_by_output_rows(tensor, mode, n_shards, order=order)
+        return {k: [idx_s[i, val_s[i] != 0, k] for i in range(n_shards)] for k in inputs}
     plan = get_plan(
         tensor,
         mode,
@@ -434,6 +485,8 @@ def executed_traces(
     mode: int,
     k: int,
     *,
+    scheme: str = "mode_ordered",
+    n_shards: int = 8,
     tile_nnz: int = 256,
     rows_per_block: int = 256,
     ordering: str | None = None,
@@ -444,6 +497,8 @@ def executed_traces(
         tensor,
         impl,
         mode,
+        scheme=scheme,
+        n_shards=n_shards,
         tile_nnz=tile_nnz,
         rows_per_block=rows_per_block,
         ordering=ordering,
@@ -458,6 +513,8 @@ def executed_trace_stats(
     geometry: CacheGeometry,
     rank: int,
     *,
+    scheme: str = "mode_ordered",
+    n_shards: int = 8,
     tile_nnz: int = 256,
     rows_per_block: int = 256,
     ordering: str | None = None,
@@ -480,6 +537,8 @@ def executed_trace_stats(
             tensor,
             impl,
             mode,
+            scheme=scheme,
+            n_shards=n_shards,
             tile_nnz=tile_nnz,
             rows_per_block=rows_per_block,
             ordering=ordering,
@@ -509,6 +568,8 @@ class ExecutedTraceHitRates(HitRateCache):
         tensor: SparseTensor,
         impl: str,
         *,
+        scheme: str = "mode_ordered",
+        n_shards: int = 8,
         tile_nnz: int = 256,
         rows_per_block: int = 256,
         ordering: str | None = None,
@@ -518,6 +579,9 @@ class ExecutedTraceHitRates(HitRateCache):
         check_impl(impl)
         self.tensor = tensor
         self.impl = impl
+        # The sharded run's partition: one cache unit per shard.
+        self.scheme = scheme
+        self.n_shards = n_shards
         self.tile_nnz = tile_nnz
         self.rows_per_block = rows_per_block
         # Execution-order strategy of the run this cache answers from;
@@ -541,6 +605,8 @@ class ExecutedTraceHitRates(HitRateCache):
                 self.tensor,
                 self.impl,
                 mode,
+                scheme=self.scheme,
+                n_shards=self.n_shards,
                 tile_nnz=self.tile_nnz,
                 rows_per_block=self.rows_per_block,
                 ordering=self.ordering,

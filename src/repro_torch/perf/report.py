@@ -210,6 +210,18 @@ def experiments_report_md(payload: dict) -> str:
             f"- worst |trace − che(L)| = {worst['max_abs_err']:.4f} "
             f"(capacity {worst['capacity_bytes']} B, mode {worst['mode']})"
         )
+    residual = [r for r in payload["runs"] if r.get("residual_share") is not None]
+    if residual:
+        # The sharded mode_ordered runs price each shard's whole trace, but
+        # its leftovers run in the residual pass on every rank, not in the
+        # shard's plan.
+        lines.append("\n## Sharded traces the shard plans do not run (leftovers)\n")
+        for r in residual:
+            per_mode = "; ".join(
+                f"mode {m}: max {max(shares):.4f}, mean {sum(shares) / len(shares):.4f}"
+                for m, shares in enumerate(r["residual_share"])
+            )
+            lines.append(f"- {r['tensor']} × {r['impl']}: share of a shard's trace, {per_mode}")
     if payload.get("skipped"):
         lines.append("\n## Skipped cells\n")
         for s in payload["skipped"]:

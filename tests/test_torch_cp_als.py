@@ -171,9 +171,11 @@ def test_argument_errors():
     empty = tst.SparseTensor(np.zeros((0, 3), np.int32), np.zeros(0, np.float32), (4, 4, 4))
     with pytest.raises(ValueError, match="nonzero"):
         tcp.cp_als(empty, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # impl="sharded" runs one rank per shard: without a process group it
+    # raises and names the way to start one.
+    with pytest.raises(RuntimeError, match="repro_torch.distributed.spawn.*init_process_group"):
         tcp.cp_als(t, 2, impl="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(RuntimeError, match="repro_torch.distributed.spawn.*init_process_group"):
         tfused.FusedCPALS(t, 2, impl="sharded", device="cpu")
     with pytest.raises(ValueError, match="unknown impl"):
         tfused.FusedCPALS(t, 2, impl="pallas", device="cpu")

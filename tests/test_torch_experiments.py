@@ -272,15 +272,19 @@ def test_engine_payload_round_trips(engine_pair):
 
 
 def test_sharded_is_refused_with_its_item_and_autotune_is_taken():
+    # The sharded impl is ported (tests/test_torch_distributed.py runs it): the
+    # spec takes it with JAX's defaults, its traces are one stream per shard,
+    # and a measurement outside a process group raises and names the way in.
     t, _ = _pair()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ExperimentSpec(impls=("ref", "sharded"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    spec = ExperimentSpec(impls=("ref", "sharded"), device="cpu")
+    assert (spec.n_shards, spec.scheme) == (JSpec().n_shards, JSpec().scheme)
+    with pytest.raises(RuntimeError, match="repro_torch.distributed.spawn.*init_process_group"):
         measure_cp_als(t, name="x", impl="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmeas.executed_input_traces(t, "sharded", 0, device="cpu")
-    with pytest.raises(SystemExit, match="item 8"):
-        tmain.main(["--impls", "ref,sharded", "--device", "cpu"])
+    assert len(tmeas.executed_input_traces(t, "sharded", 0, device="cpu")[1]) == spec.n_shards
+    with pytest.raises(ValueError, match="unknown scheme"):
+        ExperimentSpec(impls=("sharded",), scheme="ring", device="cpu")
+    with pytest.raises(SystemExit, match="unknown impls"):
+        tmain.main(["--impls", "ref,pallas", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--device"):
         tmain.main(["--backend", "xla", "--device", "cpu"])
     # The autotuner is ported (tests/test_torch_autotune.py runs both): the

@@ -274,8 +274,8 @@ def test_rank_chunk_fits_shared_memory(rank, rows_per_block, want):
 def test_mttkrp_dispatch_errors():
     t, _ = _pair((10, 10, 10), 40, seed=24)
     tf = factors_from_numpy(_np_factors(t.shape, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tm.mttkrp(t, tf, 0, impl="sharded")
+    with pytest.raises(RuntimeError, match="repro_torch.distributed.spawn.*init_process_group"):
+        tm.mttkrp(t, tf, 0, impl="sharded")  # no process group
     with pytest.raises(ValueError, match="unknown impl"):
         tm.mttkrp(t, tf, 0, impl="pallas")
     # Every ordering is ported; an unknown one raises on both paths.
