@@ -157,9 +157,26 @@ Phases, each of which fails the run (exit code 1, no result line):
      behind a sleep), the collective alone and the whole call, peak memory
      per rank; (c) ``run_experiments(impls=("sharded",), n_shards=8)`` on
      phase 11's stand-ins, each rank's launches and the fits against phase
-     11's.
+     11's;
+ 15. kernel contracts on the card: the split MTTKRP kernel's audit build
+     (``kernel.mttkrp_cuda_audit``, the same source built with
+     ``-DMTTKRP_AUDIT`` beside the production library) on phase 10's lex
+     plans (row-run mode) and blocked plans (tile mode) at B = 1 and 4,
+     run inside phase 10 while they are resident; on phase 9's stacked
+     batch and phase 11's 5-mode plans, run inside those phases; and on
+     phase 2's partition edges in both modes.  On each: every output
+     element stored exactly once, each restart's nonzeros, index columns,
+     factor rows and output stores exactly ``analytic_traffic_census(N)``
+     times the nonzeros (``repro_torch.analysis.census``), no carry or tile
+     row read before it is written, no NaN left in an output filled with
+     NaN, the stream entries read equal to the replay's count
+     (``partition.stream_entries_read``, printed with the excess over the
+     nonzeros), and the output bit for bit the production kernel's.  Then
+     each flash kernel's C entry point into a NaN-filled output on phase
+     6's input sets: no NaN left, equal to the wrapper's call.
 
-The last three lines are the card's ``name, power.limit``, a JSON object
+The last four lines are phase 15's facts (``{"phase15": ...}``), the card's
+``name, power.limit``, a JSON object
 with the main paths' kernels' numbers (the split MTTKRP kernel's row-run
 mode with the block kernel's time as ``previous_ms``, its launches over
 the CP-ALS paths of phases 3, 9, 10, 11, 12 and 14 under ``launches_by_path``,
@@ -213,9 +230,11 @@ from repro_torch.experiments import (  # noqa: E402
 from repro_torch.experiments.reconcile import ENERGY_BAND, SPEEDUP_BAND  # noqa: E402
 from repro_torch.experiments import measure as texp_measure  # noqa: E402
 from repro_torch.reorder.bench import run_reorder_sweep  # noqa: E402
+from repro_torch.analysis import census as tcensus  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import kernel as kmod  # noqa: E402
 from repro_torch.kernels.mttkrp import ops  # noqa: E402
+from repro_torch.kernels.mttkrp import partition as kpart  # noqa: E402
 from repro_torch.kernels.mttkrp.ref import mttkrp_plan_ref  # noqa: E402
 from repro_torch.reorder import strategies as tstrat  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
@@ -387,6 +406,65 @@ def partition_edge_tensors():
         "empty rows between slices": (sparse_rows, RANK, 128, 64),
         "fewer nonzeros than slices": (few, RANK, 32, 16),
     }
+
+
+def audit_plan(bufs, facs, mode: int, i_out: int, nnz: int, label: str, card: str, *,
+               split_mode: str | None = None) -> dict:
+    """Phase 15 on one plan: the split kernel's audit build
+    (``kmod.mttkrp_cuda_audit``) against the kernel contracts
+    (``tcensus.audit_failures``: every output element stored exactly once,
+    each restart's census exactly ``analytic_traffic_census(N)`` times
+    ``nnz``, no uninitialised read, no NaN left), its stream entries read
+    against the replay's count (``partition.stream_entries_read``), and its
+    output bit for bit against the production kernel's on the same inputs.
+    Each call's device time (CUDA events, one call each, the audit's fills
+    of its output and scratch included) is printed beside the production
+    call's.  Prints one line; returns the facts and the failures."""
+    dev = bufs.values.device
+    nmodes, rank = len(facs), int(facs[0].shape[-1])
+    batch = int(facs[0].shape[0]) if facs[0].dim() == 3 else 1
+    split_mode = kmod.split_mode_for(bufs, split_mode)
+    t0 = time.perf_counter()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    got, counts = kmod.mttkrp_cuda_audit(bufs, facs, mode, i_out, split_mode=split_mode)
+    events[1].record()
+    want = kmod.mttkrp_cuda(bufs, facs, mode, i_out, split_mode=split_mode)
+    events[2].record()
+    summary = tcensus.audit_summary(counts, got)
+    same = bool(torch.equal(got, want))
+    seconds = time.perf_counter() - t0
+    audit_ms, production_ms = (events[0].elapsed_time(events[1]),
+                               events[1].elapsed_time(events[2]))
+    del got, want, counts
+    failures = tcensus.audit_failures(summary, nmodes, nnz, i_out, rank)
+    slices = (kmod.tile_grid(nmodes, int(bufs.rows_per_block), facs[0].dtype, dev, batch=batch).ctas
+              if split_mode == "tiles" else kmod.split_slices(nmodes, batch, facs[0].dtype, dev))
+    predicted = kpart.stream_entries_read(int(bufs.values.shape[0]), slices, split_mode, batch)
+    if summary["entries_read"] != predicted:
+        failures.append(f"stream entries read {summary['entries_read']}, the replay's count "
+                        f"{predicted}")
+    if not same:
+        failures.append("the audit build's output differs from the production kernel's")
+    first = summary["census"][0]
+    alike = all(c == first for c in summary["census"])
+    excess = summary["entries_read"] - nnz
+    print(f"  {label} mode {mode} ({split_mode}, B={batch}, {slices} slices): stores "
+          f"{summary['store_min']}..{summary['store_max']}; census a restart"
+          f"{'' if alike else ' (restarts DIFFER)'}: values {first['values']}, indices "
+          f"{first['indices']}, factor rows {first['factor_rows']}, output stores "
+          f"{first['output_stores']} (model {tcensus.model_census(nmodes, nnz, i_out, rank)}); "
+          f"entries read {summary['entries_read']} (replay {predicted}; excess {excess}, "
+          f"{excess / max(nnz, 1):.4f} a nonzero); uninitialised reads {summary['uninit_reads']}, "
+          f"NaN left {summary['nan_left']}; audit = production bit for bit: {same}; audit "
+          f"{audit_ms:.3f} ms, production {production_ms:.3f} ms (device, one call each); "
+          f"{seconds:.3f} s  {'ok' if not failures else 'FAIL: ' + '; '.join(failures)}  [{card}]")
+    return dict(label=label, mode=mode, split_mode=split_mode, batch=batch, nnz=nnz, i_out=i_out,
+                census=first, entries_read=summary["entries_read"], excess=excess,
+                stores=[summary["store_min"], summary["store_max"]],
+                uninit_reads=summary["uninit_reads"], nan_left=summary["nan_left"],
+                bit_equal=same, failures=failures, seconds=seconds, audit_ms=audit_ms,
+                production_ms=production_ms)
 
 
 def kernel_cases():
@@ -777,6 +855,13 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
                   f"{max_rel:.3e} {'ok' if ok else 'FAIL'}, B={RESTARTS} max_abs {max_abs_b:.3e} "
                   f"max_rel {max_rel_b:.3e} {'ok' if ok_b else 'FAIL'} (tol {F32_TOL:g} x scale); "
                   f"two launches bit for bit {'equal' if same else 'DIFFER'}  [{card}]")
+        contracts = []
+        if o in ("lex", "blocked"):  # phase 15's Table II part, on these plans and factors
+            phase(f"phase 15 (Table II part, run in phase 10): the audit build on the {o} plans, "
+                  f"B=1 and B={RESTARTS}")
+            contracts = [audit_plan(b, fs, p.mode, p.shape[p.mode], tensor.nnz,
+                                    f"NELL-2 Table II, {o}", card)
+                         for p, b in zip(plans, bufs_all) for fs in (facs, batched)]
         tile_split = {}
         if o == "blocked":  # the tile mode's two launches apart, one sweep at B=1 and at B=4
             for batch, fs in ((1, facs), (RESTARTS, batched)):
@@ -813,6 +898,7 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
         launches[want_mode] += expected
         results[o] = dict(rows=rows, order_ms=order_ms, plan_s=plan_s, fused_s=fused_s,
                           fit_gap=gap, launches_by_mode=by_mode, tile_split_ms=tile_split,
+                          contracts=contracts,
                           rows_contiguous=[p.rows_contiguous for p in plans],
                           padding_overhead=[p.padding_overhead for p in plans],
                           seconds=time.perf_counter() - t_start)
@@ -823,26 +909,28 @@ def ordering_phase(dev, card: str, tensor, lex_fits: np.ndarray) -> dict:
     return dict(results=results, launches=dict(launches), tile_grid=grids)
 
 
+def flash_inputs(dev):
+    """Phase 6's input sets: (name, q, k, v, causal)."""
+    for dtype, s, causal, (h, kvh), d, b in itertools.product(
+            (torch.float32, torch.bfloat16), FLASH_SEQS, (True, False),
+            ((4, 4), (4, 2), (4, 1), (16, 8)), (64, 128), (1, 3)):
+        gen = torch.Generator(device=dev).manual_seed(s * 7 + h + d + b)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+        yield f"{dtype} S={s} causal={causal} H={h} KV={kvh} D={d} B={b}", q, k, v, causal
+    # q, k, v as views of one fused projection: strided rows, q not contiguous.
+    for s, causal, d in itertools.product((129, 1000), (True, False), (64, 128)):
+        gen = torch.Generator(device=dev).manual_seed(s + d)
+        fused = torch.randn((2, s, 16 + 2 * 8, d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = fused[:, :, :16], fused[:, :, 16:24], fused[:, :, 24:]
+        check(not q.is_contiguous(), "the strided case's q is contiguous")
+        yield f"strided bf16 S={s} causal={causal} H=16 KV=8 D={d} B=2", q, k, v, causal
+
+
 def flash_cases(dev) -> None:
     """Phase 6: each flash kernel against its plain version over edge shapes."""
-    def inputs():
-        for dtype, s, causal, (h, kvh), d, b in itertools.product(
-                (torch.float32, torch.bfloat16), FLASH_SEQS, (True, False),
-                ((4, 4), (4, 2), (4, 1), (16, 8)), (64, 128), (1, 3)):
-            gen = torch.Generator(device=dev).manual_seed(s * 7 + h + d + b)
-            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                       for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
-            yield f"{dtype} S={s} causal={causal} H={h} KV={kvh} D={d} B={b}", q, k, v, causal
-        # q, k, v as views of one fused projection: strided rows, q not contiguous.
-        for s, causal, d in itertools.product((129, 1000), (True, False), (64, 128)):
-            gen = torch.Generator(device=dev).manual_seed(s + d)
-            fused = torch.randn((2, s, 16 + 2 * 8, d), generator=gen, device=dev).to(torch.bfloat16)
-            q, k, v = fused[:, :, :16], fused[:, :, 16:24], fused[:, :, 24:]
-            check(not q.is_contiguous(), "the strided case's q is contiguous")
-            yield f"strided bf16 S={s} causal={causal} H=16 KV=8 D={d} B=2", q, k, v, causal
-
     failures, worst, worst_row, count = [], {}, {}, {}
-    for name, q, k, v, causal in inputs():
+    for name, q, k, v, causal in flash_inputs(dev):
         tol = FLASH_F32_TOL if q.dtype == torch.float32 else BF16_TOL
         want = flash_attention_plain(q, k, v, causal=causal)
         routed = fkmod.variant_for(q.dtype, q.shape[3])
@@ -1349,7 +1437,7 @@ def service_phase(dev, card: str) -> dict:
     tensors = [r.tensor for r in members]
     facs = factors_on([SERVE_MAX_BATCH * d for d in sig.dims], sig.rank_pad, dev, seed=9)
     s_idx, s_val, _ = ops.stacked_operands(tensors, sig.dims, sig.nnz_pad, device=dev)
-    rows = []
+    rows, contracts = [], []
     for mode in range(sig.nmodes):
         bufs = ops.stacked_plan_buffers(s_idx, s_val, [t.nnz for t in tensors], sig.dims, mode)
         i_out = SERVE_MAX_BATCH * sig.dims[mode]
@@ -1366,6 +1454,9 @@ def service_phase(dev, card: str) -> dict:
         flops = nnz_pad * sig.rank_pad * (sig.nmodes + 1)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
         rows.append(dict(ms=ms, plain_ms=plain, bound_ms=bound, max_abs=max_abs, ok=ok, same=same))
+        contracts.append(audit_plan(bufs, facs, mode, i_out, sum(t.nnz for t in tensors),
+                                    f"phase 15 on the service's stacked batch ({len(tensors)} "
+                                    f"tenants)", card))
         print(f"  stacked MTTKRP mode {mode} (B={SERVE_MAX_BATCH}, rank_pad {sig.rank_pad}, "
               f"nnz_pad {nnz_pad}, {nblocks} blocks, {i_out} rows): split {ms:.3f} ms, plain "
               f"{plain:.3f} ms, bound {bound:.4f} ms; max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
@@ -1415,7 +1506,7 @@ def service_phase(dev, card: str) -> dict:
                 stage_host_ms=stage_host_ms, enqueue_ms=enqueue_ms,
                 stacked_ms=[r["ms"] for r in rows], stacked_plain_ms=[r["plain_ms"] for r in rows],
                 stacked_bound_ms=[r["bound_ms"] for r in rows],
-                stacked_max_abs=max(r["max_abs"] for r in rows))
+                stacked_max_abs=max(r["max_abs"] for r in rows), contracts=contracts)
 
 
 # Phase 11: the paper's experiment engine at the largest stand-ins that
@@ -1481,12 +1572,18 @@ def engine_phase(dev, card: str) -> dict:
           f"the engine's MTTKRPs did not all take the split kernel: {by_variant}")
     check(len(per_run) == len(result.runs), f"{len(result.runs)} runs for {len(per_run)} tensors")
     kernel_ms = {}  # shape -> per mode, the split kernel alone on the run's plans
+    contracts = []
     for tensor in tensors.values():
         facs = factors_on(tensor.shape, RANK, dev)  # random factors, for the time only
         kernel_ms[tensor.shape] = [
             back_to_back_ms(lambda b=ops.plan_device_buffers(ops.get_plan(tensor, m), dev), m=m:
                             kmod.mttkrp_cuda(b, facs, m, tensor.shape[m]))
             for m in range(tensor.nmodes)]
+        if tensor.nmodes == 5:  # phase 15 on the run's 5-mode plans (LBNL)
+            contracts += [audit_plan(ops.plan_device_buffers(ops.get_plan(tensor, m), dev), facs,
+                                     m, tensor.shape[m], tensor.nnz,
+                                     f"phase 15 on phase 11's 5-mode plans, dims {tensor.shape}",
+                                     card) for m in range(tensor.nmodes)]
         del facs
     fit_tol = tfused.FUSED_FIT_TOL
     entries = {}
@@ -1604,7 +1701,7 @@ def engine_phase(dev, card: str) -> dict:
     print(f"  ordering benchmark (quick, orders sorted on the card): {reorder_s:.1f} s host; "
           f"winners {({n: r['winners'] for n, r in acc['tensors'].items()})}, ok {acc['ok']}")
     check(acc["ok"], f"the ordering benchmark's acceptance fails: {acc}")
-    return dict(launches=launches, by_variant=by_variant, runs=entries,
+    return dict(launches=launches, by_variant=by_variant, runs=entries, contracts=contracts,
                 max_abs=max(h[2] for h in held), engine_s=engine_s,
                 ref=dict(per_mode_ms=[mm.steady_s * 1e3 for mm in ref_run.measured.modes],
                          per_mode_event_ms=[mm.steady_device_s * 1e3 for mm in ref_run.measured.modes],
@@ -2384,6 +2481,62 @@ def sharded_phase(dev, card: str, paths, shape, eager_fits, fused_fits, engine_f
                 timing=first["timing"], peak_gb=[r["peak_gb"] for r in results])
 
 
+def contract_phase(dev, card: str, earlier: list[dict]) -> dict:
+    """Phase 15: kernel contracts on the card.  The split kernel's audit build
+    (``audit_plan``) on the partition edges of phase 2, in both modes, after
+    the Table II plans of phase 10, the service's stacked batch of phase 9
+    and phase 11's 5-mode plans (``earlier``, audited where those phases
+    built them); then each flash kernel's C entry point run into an output
+    filled with NaN on phase 6's input sets, which must leave no NaN and
+    equal the wrapper's call bit for bit.  Any failure fails the run."""
+    phase("phase 15: kernel contracts on the card (the split kernel's audit build; the flash "
+          "kernels into a NaN-filled output)")
+    t_start = time.perf_counter()
+    audits = list(earlier)
+    for name, (t, rank, tile, rpb) in partition_edge_tensors().items():
+        facs = factors_on(t.shape, rank, dev, seed=t.nnz)
+        for mode in range(t.nmodes):
+            bufs = ops.plan_device_buffers(
+                tst.build_mttkrp_plan(t, mode, tile_nnz=tile, rows_per_block=rpb), dev)
+            for split_mode in kmod.SPLIT_MODES:
+                audits.append(audit_plan(bufs, facs, mode, t.shape[mode], t.nnz,
+                                         f"partition edge: {name}", card, split_mode=split_mode))
+        del facs
+    ops.clear_caches()
+    flash_sets = flash_bad = 0
+    for name, q, k, v, causal in flash_inputs(dev):
+        routed = fkmod.variant_for(q.dtype, q.shape[3])
+        for variant in (routed, "mma") if q.dtype == torch.bfloat16 else (routed,):
+            out = torch.full(q.shape, float("nan"), dtype=q.dtype, device=dev)
+            fkmod._launch(q, k, v, out, causal=causal, variant=variant)
+            want = fkmod.flash_attention_cuda(q, k, v, causal=causal, variant=variant)
+            if bool(torch.isnan(out).any()) or not torch.equal(out, want):
+                flash_bad += 1
+                print(f"  flash {variant} {name}: NaN left {int(torch.isnan(out).sum())}, "
+                      f"equal to the wrapper's call: {torch.equal(out, want)}  FAIL")
+            flash_sets += 1
+    torch.cuda.synchronize()
+    failed = [f"{a['label']} mode {a['mode']} ({a['split_mode']}, B={a['batch']}): "
+              f"{'; '.join(a['failures'])}" for a in audits if a["failures"]]
+    seconds = time.perf_counter() - t_start + sum(a["seconds"] for a in earlier)
+    print(f"  {len(audits)} audited calls ({sum(a['split_mode'] == 'rows' for a in audits)} "
+          f"row-run, {sum(a['split_mode'] == 'tiles' for a in audits)} tile), "
+          f"{len(failed)} failing; flash: {flash_sets} launches into NaN, {flash_bad} failing; "
+          f"{seconds:.1f} s of phase time  [{card}]")
+    check(not failed, f"the split kernel breaks its contracts: {failed[:5]}")
+    check(flash_bad == 0, f"{flash_bad} flash launches left NaN or differ from the wrapper's")
+    table2 = [a for a in audits if a["label"].startswith("NELL-2")]
+    return dict(
+        audits=len(audits), seconds=seconds, flash_launches=flash_sets,
+        table2={f"{a['label'].split(', ')[1]} mode {a['mode']} B={a['batch']}": dict(
+            census=a["census"], entries_read=a["entries_read"], excess=a["excess"],
+            audit_ms=a["audit_ms"], production_ms=a["production_ms"]) for a in table2},
+        excess_per_nnz={m: sum(a["excess"] for a in audits if a["split_mode"] == m)
+                        / max(1, sum(a["nnz"] for a in audits if a["split_mode"] == m))
+                        for m in kmod.SPLIT_MODES},
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -2401,14 +2554,11 @@ def main() -> int:
           f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
     built = build.build_all()
-    print(f"build: {len(built)} CUDA source(s) in {time.perf_counter() - t0:.2f} s wall")
+    print(f"build: {len(built)} libraries from the CUDA sources in {time.perf_counter() - t0:.2f} s wall")
     for lib in built.values():
         print(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.relative_to(REPO)}")
-        for line in lib.log.splitlines():
-            if "Compiling entry function" in line:
-                print(f"    {line.split(chr(39))[1][:110]}")  # the mangled kernel name
-            elif "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"    {line.strip()}")
+        for kernel, resources in build.ptxas_resources(lib.log).items():
+            print(f"    {kernel[:110]}: {resources}")  # the mangled name, ptxas -v
 
     # -- phase 2: kernel against plain, small CP-ALS card vs CPU -------------
     phase("phase 2: kernel vs plain version on the card")
@@ -2461,6 +2611,11 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, card, paths, nell2_shape, eager_fits, lex_fits,
                             {t: r["fit"] for t, r in engine["runs"].items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    contracts = contract_phase(dev, card, [
+        *(a for o in ("lex", "blocked") for a in ordered["results"][o]["contracts"]),
+        *served["contracts"], *engine["contracts"]])
     row_run = ordered["launches"].get("rows", 0)
     mttkrp_entry["launches_by_path"] = {
         "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
@@ -2534,6 +2689,7 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
     total_s = time.perf_counter() - T_START
     print(f"total {total_s:.1f} s")
     kernels = [mttkrp_entry, tile_entry, flash_entry]
+    print(json.dumps({"phase15": contracts}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,14 +33,36 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["HEAD_DIMS", "VARIANTS", "WGMMA_HEAD_DIMS", "check_inputs", "flash_attention_cuda",
-           "reset_launch_counts", "variant_for"]
+__all__ = ["HEAD_DIMS", "QUERY_TILE", "VARIANTS", "WGMMA_HEAD_DIMS", "check_inputs", "cta_rows",
+           "flash_attention_cuda", "reset_launch_counts", "variant_for"]
 
 HEAD_DIMS = (32, 64, 128)  # the head dims some kernel is built for
 WGMMA_HEAD_DIMS = (64, 128)  # flash_attention_sm90.cu's instantiations
 VARIANTS = ("wgmma", "mma", "f32")
 MAX_GRID_YZ = 65_535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Query rows per CTA: flash_attention_sm90.cu BM, flash_attention.cu BQ and F_BQ.
+QUERY_TILE = {"wgmma": 128, "mma": 64, "f32": 64}
+
+
+def cta_rows(batch: int, seq: int, heads: int, variant: str, causal: bool):
+    """The launch grid of ``variant`` as its source decodes ``blockIdx``:
+    yields ``(b, h, q0, q1)`` per CTA, the query rows ``[q0, q1)`` of head
+    ``h`` of batch ``b`` whose output rows it stores.  ``wgmma``'s grid is
+    1-D, ``(b, h)`` fastest; the others' is ``(query tile, h, b)``; a causal
+    grid runs its tiles from the last."""
+    tile = QUERY_TILE[variant]
+    n_tiles = -(-seq // tile)
+    for x in range(n_tiles * batch * heads):
+        if variant == "wgmma":
+            bh, qt = x % (batch * heads), x // (batch * heads)
+            b, h = divmod(bh, heads)
+        else:
+            qt, rest = x % n_tiles, x // n_tiles
+            h, b = rest % heads, rest // heads
+        if causal:
+            qt = n_tiles - 1 - qt
+        yield b, h, qt * tile, min(seq, (qt + 1) * tile)
 
 
 def variant_for(dtype: torch.dtype, head_dim: int) -> str:

@@ -91,6 +91,53 @@
 #define CHUNK (TPN * 4)       // rank columns per pass
 #define FULL 0xffffffffu
 
+// The audit build (-DMTTKRP_AUDIT, a library of its own: kernels/build.py)
+// counts what the four kernels below do, to hold them to the contracts the
+// JAX package proves of its Pallas kernel: every output element stored
+// exactly once, no carry, partial sum or tile row read before it is written
+// or zero-filled, and the nonzeros consumed equal to the performance model's
+// census (per restart: nnz values, N*nnz index columns, (N-1)*nnz factor
+// rows).  Its wrapper (kernel.mttkrp_cuda_audit) fills the output and the
+// carries with AUDIT_UNSET and the carry rows or blocks with AUDIT_UNSET_IDX,
+// so a read of a slot never written shows as that pattern.  The float sums
+// run in the same order as in the production kernels, so both builds give
+// the same bits.  Without the macro none of it is compiled.
+#ifdef MTTKRP_AUDIT
+#define AUDIT_UNSET 0x7fbadbadu        // a NaN no arithmetic produces
+#define AUDIT_UNSET_IDX (-2147483647 - 1)
+#define AUDIT_COUNTS 3                 // per restart: nonzeros, index columns, factor rows
+#define AUDIT_READ 0                   // stream entries read (row-run) or staged (tile), first pass
+#define AUDIT_UNINIT 1                 // reads of a slot never written or zero-filled
+struct Audit {
+    int* stores;                   // (batch, i_out, rank): stores each output element received
+    unsigned long long* restart;   // (batch, AUDIT_COUNTS)
+    unsigned long long* counts;    // [AUDIT_READ], [AUDIT_UNINIT]
+};
+static Audit g_audit{};  // set by mttkrp_audit_buffers before a launch
+#define AUDIT_PARAM , Audit audit
+#define AUDIT_ARG , g_audit
+
+// n consecutive output elements from `elem` received one store each.
+__device__ __forceinline__ void audit_store(const Audit& a, long long elem, int n)
+{
+    for (int j = 0; j < n; ++j) atomicAdd(a.stores + elem + j, 1);
+}
+__device__ __forceinline__ bool audit_unset(float x) { return __float_as_uint(x) == AUDIT_UNSET; }
+__device__ __forceinline__ void audit_uninit(const Audit& a, int n)
+{
+    if (n) atomicAdd(a.counts + AUDIT_UNINIT, static_cast<unsigned long long>(n));
+}
+__device__ __forceinline__ void audit_value(const Audit& a, float x) { audit_uninit(a, audit_unset(x)); }
+__device__ __forceinline__ void audit_index(const Audit& a, int x) { audit_uninit(a, x == AUDIT_UNSET_IDX); }
+__device__ __forceinline__ void audit_row4(const Audit& a, const float4& t)
+{
+    audit_uninit(a, audit_unset(t.x) + audit_unset(t.y) + audit_unset(t.z) + audit_unset(t.w));
+}
+#else
+#define AUDIT_PARAM
+#define AUDIT_ARG
+#endif
+
 struct FactorArgs {
     const void* ptr[MAX_MODES - 1];         // the factors other than the output mode's
     long long batch_stride[MAX_MODES - 1];  // elements between restarts; 0 = shared
@@ -153,7 +200,8 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
     float* __restrict__ out,                      // (batch, i_out, rank)
     float* __restrict__ carry_val,                // (W, 2, batch, rank)
     int32_t* __restrict__ carry_row,              // (W, 2)
-    long long nnz_pad, int num_blocks, int nmodes, int mode, int rank, int batch, int i_out)
+    long long nnz_pad, int num_blocks, int nmodes, int mode, int rank, int batch, int i_out
+    AUDIT_PARAM)
 {
     constexpr int MO = NO > 0 ? NO : MAX_MODES - 1;
     const int nother = NO > 0 ? NO : nmodes - 1;
@@ -234,6 +282,9 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
                 ? carry_val + (w * 2 + slot) * cols + bb * rank + c0
                 : out + (bb * i_out + row) * rank + c0;
             store4<VEC>(dst, ncols, t[b]);
+#ifdef MTTKRP_AUDIT
+            if (slot < 0) audit_store(audit, (bb * i_out + row) * rank + c0, min(ncols, 4));
+#endif
         }
     };
     auto zero_rows = [&](int from, int to) {
@@ -245,14 +296,25 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
                 if (b >= nb) break;
                 store4<VEC>(out + ((b0 + b) * static_cast<long long>(i_out) + r) * rank + c0,
                             ncols, z);
+#ifdef MTTKRP_AUDIT
+                audit_store(audit, ((b0 + b) * static_cast<long long>(i_out) + r) * rank + c0,
+                            min(ncols, 4));
+#endif
             }
     };
+#ifdef MTTKRP_AUDIT
+    // One lane per nonzero (q == 0) counts, in the first column pass.
+    unsigned a_nnz = 0, a_idx = 0, a_rows = 0, a_read = 0;
+#endif
 
     for (long long base = lo; base < hi; base += U * GROUPS) {
         // Loads of the U steps, all issued before any is used: the stream
         // entry (clamped into the slice), then the factor rows it names.
         int row[U];
         float p[U][NB][4];
+#ifdef MTTKRP_AUDIT
+        int a_cols[U], a_gath[U];  // index columns read and factor rows gathered (one restart)
+#endif
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             const long long n = base + u * GROUPS + g;
@@ -263,6 +325,12 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
             int ix[MO];
 #pragma unroll
             for (int j = 0; j < MO; ++j) ix[j] = j < nother ? __ldg(idx_n + fcol[j]) : 0;
+#ifdef MTTKRP_AUDIT
+            a_cols[u] = 1;
+            a_gath[u] = 0;
+#pragma unroll
+            for (int j = 0; j < MO; ++j) a_cols[u] += j < nother;
+#endif
 #pragma unroll
             for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -270,6 +338,9 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
 #pragma unroll
             for (int j = 0; j < MO; ++j) {
                 if (j >= nother) break;
+#ifdef MTTKRP_AUDIT
+                ++a_gath[u];
+#endif
 #pragma unroll
                 for (int b = 0; b < NB; ++b) {
                     float x[4];
@@ -298,6 +369,16 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
 #pragma unroll
                     for (int c = 0; c < 4; ++c) p[u][b][c] = 0.0f;
             }
+#ifdef MTTKRP_AUDIT
+            if (q == 0 && blockIdx.y == 0) {
+                a_read += blockIdx.z == 0;
+                if (row[u] >= 0) {
+                    ++a_nnz;
+                    a_idx += a_cols[u];
+                    a_rows += a_gath[u];
+                }
+            }
+#endif
         }
         // The common case: every entry of the U steps continues the open run.
         bool goes_on = true;
@@ -391,6 +472,26 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
         carry_row[2 * w] = first_row;
         carry_row[2 * w + 1] = cur_row != first_row ? cur_row : -1;
     }
+#ifdef MTTKRP_AUDIT
+    // The warps' counts summed in shared memory, then one atomic per CTA and
+    // counter (every thread of the CTA reaches this point).
+    __shared__ unsigned long long a_sum[4];
+    if (threadIdx.x < 4) a_sum[threadIdx.x] = 0;
+    __syncthreads();
+    const unsigned a_val[4] = {a_nnz, a_idx, a_rows, a_read};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const unsigned s = __reduce_add_sync(FULL, a_val[k]);
+        if (lane == 0 && s) atomicAdd(a_sum + k, static_cast<unsigned long long>(s));
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int b = 0; b < nb; ++b)
+            for (int k = 0; k < AUDIT_COUNTS; ++k)
+                if (a_sum[k]) atomicAdd(audit.restart + (b0 + b) * AUDIT_COUNTS + k, a_sum[k]);
+        if (a_sum[3]) atomicAdd(audit.counts + AUDIT_READ, a_sum[3]);
+    }
+#endif
 }
 
 // One warp per slice v (and one for v == W): stores the rows whose first
@@ -398,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, NB == 1 ? 3 : 1) mttkrp_split_kernel(
 // and zero-fills the empty rows before slice v's first row.
 __global__ void __launch_bounds__(THREADS) mttkrp_carry_kernel(
     const float* __restrict__ carry_val, const int32_t* __restrict__ carry_row,
-    float* __restrict__ out, int num_warps, int batch, int rank, int i_out)
+    float* __restrict__ out, int num_warps, int batch, int rank, int i_out AUDIT_PARAM)
 {
     const int lane = threadIdx.x & 31;
     const int v = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -410,10 +511,16 @@ __global__ void __launch_bounds__(THREADS) mttkrp_carry_kernel(
     for (int j0 = v - 1; j0 >= 0; j0 -= 32) {
         const int j = j0 - lane;
         const int fr = j >= 0 ? carry_row[2 * j] : -1;
+#ifdef MTTKRP_AUDIT
+        audit_index(audit, fr);
+#endif
         const unsigned m = __ballot_sync(FULL, fr >= 0);
         if (m) {
             const int jj = j0 - (__ffs(m) - 1);
             const int lr = carry_row[2 * jj + 1];
+#ifdef MTTKRP_AUDIT
+            if (lane == 0) audit_index(audit, lr);
+#endif
             prev = lr >= 0 ? lr : carry_row[2 * jj];
             break;
         }
@@ -424,6 +531,9 @@ __global__ void __launch_bounds__(THREADS) mttkrp_carry_kernel(
             const long long r = from + e / cols;
             const long long c = e % cols;
             out[((c / rank) * i_out + r) * rank + c % rank] = 0.0f;
+#ifdef MTTKRP_AUDIT
+            audit_store(audit, ((c / rank) * i_out + r) * rank + c % rank, 1);
+#endif
         }
     };
     if (v == num_warps) {  // after the stream's last row
@@ -432,6 +542,12 @@ __global__ void __launch_bounds__(THREADS) mttkrp_carry_kernel(
     }
     const int first = carry_row[2 * v];
     const int last = carry_row[2 * v + 1];
+#ifdef MTTKRP_AUDIT
+    if (lane == 0) {
+        audit_index(audit, first);
+        audit_index(audit, last);
+    }
+#endif
     if (first < 0) return;  // no real entry in this slice
 
     // Sum row `row` from slice v's carry `slot` and, if the row may go on,
@@ -443,6 +559,10 @@ __global__ void __launch_bounds__(THREADS) mttkrp_carry_kernel(
                 const int j = j0 + lane;
                 const int fr = j < num_warps ? carry_row[2 * j] : -2;
                 const int lr = j < num_warps ? carry_row[2 * j + 1] : -1;
+#ifdef MTTKRP_AUDIT
+                audit_index(audit, fr);
+                audit_index(audit, lr);
+#endif
                 const bool take = fr == row;
                 const bool stop = (fr != row && fr != -1) || (take && lr >= 0);
                 const unsigned sm = __ballot_sync(FULL, stop);
@@ -454,6 +574,12 @@ __global__ void __launch_bounds__(THREADS) mttkrp_carry_kernel(
         }
         for (long long c = lane; c < cols; c += 32) {
             float s = carry_val[(2LL * v + slot) * cols + c];
+#ifdef MTTKRP_AUDIT
+            audit_value(audit, s);
+            for (int j = v + 1; j <= end; ++j)
+                if (carry_row[2 * j] == row) audit_value(audit, carry_val[2LL * j * cols + c]);
+            audit_store(audit, ((c / rank) * i_out + row) * rank + c % rank, 1);
+#endif
 #pragma unroll 8
             for (int j = v + 1; j <= end; ++j)
                 if (carry_row[2 * j] == row) s += carry_val[2LL * j * cols + c];
@@ -503,12 +629,12 @@ static cudaError_t launch(const LaunchArgs& a, cudaStream_t stream)
     const dim3 grid(a.ctas, (a.rank + CHUNK - 1) / CHUNK, (a.batch + NB - 1) / NB);
     SPLIT_KERNEL(T, NO, NB, VEC)<<<grid, THREADS, 0, stream>>>(
         a.indices, a.values, a.block_start, a.block_real_end, a.fac, a.out, a.carry_val,
-        a.carry_row, a.nnz_pad, a.num_blocks, a.nmodes, a.mode, a.rank, a.batch, a.i_out);
+        a.carry_row, a.nnz_pad, a.num_blocks, a.nmodes, a.mode, a.rank, a.batch, a.i_out AUDIT_ARG);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int num_warps = a.ctas * WARPS;
     mttkrp_carry_kernel<<<(num_warps + 1 + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
-        a.carry_val, a.carry_row, a.out, num_warps, a.batch, a.rank, a.i_out);
+        a.carry_val, a.carry_row, a.out, num_warps, a.batch, a.rank, a.i_out AUDIT_ARG);
     return cudaGetLastError();
 }
 
@@ -750,7 +876,7 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
     float* __restrict__ carry_val,                // (C, 2, batch, rpb, rank)
     int32_t* __restrict__ carry_blk,              // (C, 2)
     long long nnz_pad, int num_blocks, int nmodes, int mode, int rank, int batch, int i_out,
-    int rpb, int b_pass)
+    int rpb, int b_pass AUDIT_PARAM)
 {
     constexpr int MO = NO > 0 ? NO : MAX_MODES - 1;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -812,6 +938,12 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
     __syncthreads();
     if (b >= ab || h >= ah) return;
 
+#ifdef MTTKRP_AUDIT
+    // Per restart, warp h == 0 counts, one lane per nonzero, in the first
+    // column pass; thread 0 counts the entries it stages in the first pass.
+    unsigned a_nnz = 0, a_idx = 0, a_rows = 0, a_read = 0;
+    const bool a_counts = h == 0 && lane % TILE_TPN == 0 && blockIdx.y == 0;
+#endif
     // Chunk k holds entries [a0 + k*TILE_STAGE, min(.. + TILE_STAGE, hi4)).
     const long long a0 = lo & ~3LL;
     const long long hi4 = (hi + 3) & ~3LL;
@@ -825,6 +957,9 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
         const long long ce = min(cs + TILE_STAGE, hi4);
         int32_t* sidx = stage_idx(k);
         float* sval = reinterpret_cast<float*>(sidx + TILE_STAGE * stride);
+#ifdef MTTKRP_AUDIT
+        if (blockIdx.y == 0 && blockIdx.z == 0) a_read += static_cast<unsigned>(min(ce, nnz_pad) - cs);
+#endif
         for (long long n = max(cs, nnz4); n < min(ce, nnz_pad); ++n) {
             for (int j = 0; j < stride; ++j) sidx[(n - cs) * stride + j] = indices[n * stride + j];
             sval[n - cs] = values[n];
@@ -867,6 +1002,13 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
     long long v_hi = min(hi, static_cast<long long>(block_real_end[cur_blk]));
     int carried0 = -1, carried1 = -1;
     const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#ifdef MTTKRP_AUDIT
+    {
+        const float u = __uint_as_float(AUDIT_UNSET);
+        for (int r = g; r < rpb; r += TILE_GROUPS) part[r * 4 + q] = make_float4(u, u, u, u);
+        __syncwarp();
+    }
+#endif
     for (int r = g; r < rpb; r += TILE_GROUPS) part[r * 4 + q] = zero4;
     __syncwarp();
 
@@ -886,6 +1028,12 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
                 const float4 t = part[r * 4 + q];
                 const float x[4] = {t.x, t.y, t.z, t.w};
                 store4<VEC>(dst + static_cast<long long>(r) * rank, ncols, x);
+#ifdef MTTKRP_AUDIT
+                audit_row4(audit, t);
+                if (own)
+                    audit_store(audit, (static_cast<long long>(bb) * i_out + row0 + r) * rank + c0,
+                                min(ncols, 4));
+#endif
             }
         for (int r = g; r < rpb; r += TILE_GROUPS) part[r * 4 + q] = zero4;
         __syncwarp();
@@ -906,6 +1054,9 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
         for (int t = 0;; ++t) {
             if (tail && seg == t) {
                 float4 x = part[key * 4 + q];
+#ifdef MTTKRP_AUDIT
+                audit_row4(audit, x);
+#endif
                 x.x += v[0]; x.y += v[1]; x.z += v[2]; x.w += v[3];
                 part[key * 4 + q] = x;
             }
@@ -934,6 +1085,9 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
             // names.
             int row[TILE_U];
             float p[TILE_U][4];
+#ifdef MTTKRP_AUDIT
+            int a_cols[TILE_U], a_gath[TILE_U];  // index columns read and factor rows gathered
+#endif
 #pragma unroll
             for (int u = 0; u < TILE_U; ++u) {
                 const long long n = base + u * TILE_GROUPS + g;
@@ -944,11 +1098,20 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
                 int ix[MO];
 #pragma unroll
                 for (int j = 0; j < MO; ++j) ix[j] = j < nother ? e[fcol[j]] : 0;
+#ifdef MTTKRP_AUDIT
+                a_cols[u] = 1;
+                a_gath[u] = 0;
+#pragma unroll
+                for (int j = 0; j < MO; ++j) a_cols[u] += j < nother;
+#endif
 #pragma unroll
                 for (int c = 0; c < 4; ++c) p[u][c] = val;
 #pragma unroll
                 for (int j = 0; j < MO; ++j) {
                     if (j >= nother) break;
+#ifdef MTTKRP_AUDIT
+                    ++a_gath[u];
+#endif
                     float x[4];
                     load4<VEC>(f[j] + static_cast<long long>(ix[j]) * rank, gather_cols, x);
 #pragma unroll
@@ -963,6 +1126,9 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
                 for (int u = 0; u < TILE_U; ++u) {
                     const long long n = base + u * TILE_GROUPS + g;
                     key[u] = n >= v_lo && n < v_hi ? row[u] - cur_blk * rpb : -1;
+#ifdef MTTKRP_AUDIT
+                    if (a_counts && key[u] >= 0) { ++a_nnz; a_idx += a_cols[u]; a_rows += a_gath[u]; }
+#endif
                 }
                 tile_runs<TILE_U>(key, p, tail, seg, turns);
 #pragma unroll
@@ -978,6 +1144,9 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
                 // One round per block the step touches.
                 for (;;) {
                     int k1[1] = {n >= v_lo && n < v_hi ? row[u] - cur_blk * rpb : -1};
+#ifdef MTTKRP_AUDIT
+                    if (a_counts && k1[0] >= 0) { ++a_nnz; a_idx += a_cols[u]; a_rows += a_gath[u]; }
+#endif
                     float v1[1][4] = {{p[u][0], p[u][1], p[u][2], p[u][3]}};
                     bool t1[1];
                     int s1[1], n1[1];
@@ -997,6 +1166,19 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
         carry_blk[2 * cta] = carried0;
         carry_blk[2 * cta + 1] = carried1;
     }
+#ifdef MTTKRP_AUDIT
+    // One atomic per warp and counter: warps of a CTA leave at different
+    // points, so there is no barrier to sum them at.
+    const unsigned a_val[4] = {a_nnz, a_idx, a_rows, a_read};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const unsigned s = __reduce_add_sync(FULL, a_val[k]);
+        if (lane == 0 && s)
+            atomicAdd(k < AUDIT_COUNTS ? audit.restart + static_cast<long long>(bb) * AUDIT_COUNTS + k
+                                       : audit.counts + AUDIT_READ,
+                      static_cast<unsigned long long>(s));
+    }
+#endif
 }
 
 // CTAs of THREADS elements each over (output block, restart): if slices
@@ -1007,7 +1189,7 @@ __global__ void __launch_bounds__(TILE_MAX_PASS * TILE_SPLIT * 32, 4 / TILE_SPLI
 __global__ void __launch_bounds__(THREADS) mttkrp_tile_carry_kernel(
     const float* __restrict__ carry_val, const int32_t* __restrict__ carry_blk,
     const int64_t* __restrict__ block_start, float* __restrict__ out, long long nnz_pad,
-    int slices, int batch, int rank, int i_out, int rpb, int parts)
+    int slices, int batch, int rank, int i_out, int rpb, int parts AUDIT_PARAM)
 {
     const int b = blockIdx.x / parts;
     const int part = blockIdx.x % parts;
@@ -1028,6 +1210,12 @@ __global__ void __launch_bounds__(THREADS) mttkrp_tile_carry_kernel(
     bool carried = false;
     for (long long v = wa; v <= wz && !carried; ++v)
         carried = carry_blk[2 * v] == b || carry_blk[2 * v + 1] == b;
+#ifdef MTTKRP_AUDIT
+    for (long long v = wa; v <= wz; ++v) {
+        audit_index(audit, carry_blk[2 * v]);
+        audit_index(audit, carry_blk[2 * v + 1]);
+    }
+#endif
     if (!carried) return;  // stored by the slice that holds it whole
     const long long r = e / rank;
     const long long c = e % rank;
@@ -1036,8 +1224,14 @@ __global__ void __launch_bounds__(THREADS) mttkrp_tile_carry_kernel(
     for (long long v = wa; v <= wz; ++v) {
         const int slot = carry_blk[2 * v] == b ? 0 : carry_blk[2 * v + 1] == b ? 1 : -1;
         if (slot >= 0) s += carry_val[(((v * 2 + slot) * batch + bz) * rpb + r) * rank + c];
+#ifdef MTTKRP_AUDIT
+        if (slot >= 0) audit_value(audit, carry_val[(((v * 2 + slot) * batch + bz) * rpb + r) * rank + c]);
+#endif
     }
     out[(static_cast<long long>(bz) * i_out + row0 + r) * rank + c] = s;
+#ifdef MTTKRP_AUDIT
+    audit_store(audit, (static_cast<long long>(bz) * i_out + row0 + r) * rank + c, 1);
+#endif
 }
 
 #define TILE_KERNEL(T, NO, VEC) mttkrp_tile_kernel<T, NO, VEC>
@@ -1072,13 +1266,13 @@ static cudaError_t tile_launch(const LaunchArgs& a, int b_pass, cudaStream_t str
     TILE_KERNEL(T, NO, VEC)<<<grid, b_pass * TILE_SPLIT * 32, smem, stream>>>(
         a.indices, a.values, a.block_start, a.block_real_end, a.fac, a.out, a.carry_val,
         a.carry_row, a.nnz_pad, a.num_blocks, a.nmodes, a.mode, a.rank, a.batch, a.i_out,
-        a.rows_per_block, b_pass);
+        a.rows_per_block, b_pass AUDIT_ARG);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int parts = (a.rows_per_block * a.rank + THREADS - 1) / THREADS;
     mttkrp_tile_carry_kernel<<<dim3(a.num_blocks * parts, a.batch), THREADS, 0, stream>>>(
         a.carry_val, a.carry_row, a.block_start, a.out, a.nnz_pad, a.ctas, a.batch, a.rank,
-        a.i_out, a.rows_per_block, parts);
+        a.i_out, a.rows_per_block, parts AUDIT_ARG);
     return cudaGetLastError();
 }
 
@@ -1213,5 +1407,16 @@ const char* mttkrp_split_error_string(int err)
 {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef MTTKRP_AUDIT
+// The audit build's counters for the launches that follow: stores holds
+// batch*i_out*rank ints, restart batch*AUDIT_COUNTS and counts 2 unsigned
+// 64-bit counts, all on the device and zeroed by the caller.
+int mttkrp_audit_buffers(int* stores, unsigned long long* restart, unsigned long long* counts)
+{
+    g_audit = Audit{stores, restart, counts};
+    return 0;
+}
+#endif
 
 }  // extern "C"

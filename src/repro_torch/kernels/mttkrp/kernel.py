@@ -29,11 +29,23 @@ one level up, in ``ops.mttkrp_from_plan``.
 split variant's carry pass is part of its call),
 ``mttkrp_cuda.launches_by_variant`` counts them per variant and
 ``mttkrp_cuda.launches_by_mode`` the split variant's per mode.
+
+``mttkrp_cuda_audit`` launches the split kernel's audit build (the same
+source compiled with ``-DMTTKRP_AUDIT``) on the same grid as
+``mttkrp_cuda``, into an output and carries filled with a NaN pattern no
+arithmetic produces, and returns what the build counted (``AuditCounts``):
+the stores each output element received, the nonzeros, index columns and
+factor rows each restart consumed, the stream entries read, and the reads
+of a carry, partial sum or tile row never written.  It is the card's half
+of ``repro_torch.analysis``'s kernel contracts, whose CPU half replays the
+same launches (``partition.py``); ``mttkrp_cuda_audit.launches`` counts it
+apart from the main path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import torch
@@ -44,11 +56,15 @@ if TYPE_CHECKING:
     from repro_torch.kernels.mttkrp.ops import PlanBuffers
 
 __all__ = [
+    "AUDIT_UNSET",
+    "AUDIT_UNSET_IDX",
+    "AuditCounts",
     "MAX_MODES",
     "MAX_RANK_CHUNK",
     "SPLIT_MODES",
     "VARIANTS",
     "mttkrp_cuda",
+    "mttkrp_cuda_audit",
     "rank_chunk",
     "reset_launch_counts",
     "split_mode_for",
@@ -66,6 +82,10 @@ SPLIT_WARPS_PER_CTA = 8  # csrc/mttkrp_split.cu: THREADS / 32; one slice per war
 SPLIT_RANK_CHUNK = 16  # csrc/mttkrp_split.cu: CHUNK, rank columns per pass
 SPLIT_BATCH_CHUNK = 4  # restarts per pass over the stream
 _FACTOR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+AUDIT_UNSET = 0x7FBADBAD  # csrc/mttkrp_split.cu: the bits of a float never written
+AUDIT_UNSET_IDX = -(2**31)  # csrc/mttkrp_split.cu: a carry row or block never written
+# The split variant's libraries: the production build and the audit build.
+_SPLIT_LIBRARIES = {"split": "mttkrp_split", "split_audit": "mttkrp_split_audit"}
 
 
 def rank_chunk(rank: int, rows_per_block: int) -> int:
@@ -91,7 +111,7 @@ def _library(variant: str):
             lib.mttkrp_error_string.argtypes = [ctypes.c_int]
             lib.mttkrp_error_string.restype = ctypes.c_char_p
         return lib
-    lib = build.load("mttkrp_split")
+    lib = build.load(_SPLIT_LIBRARIES[variant])
     if lib.mttkrp_split_launch.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mttkrp_split_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll,
@@ -107,6 +127,9 @@ def _library(variant: str):
         ip = ctypes.POINTER(ctypes.c_int)
         lib.mttkrp_tiles_grid.argtypes = [i, i, i, i, ip, ip, ip, ip, ip]
         lib.mttkrp_tiles_grid.restype = ctypes.c_int
+        if variant == "split_audit":
+            lib.mttkrp_audit_buffers.argtypes = [p, p, p]
+            lib.mttkrp_audit_buffers.restype = ctypes.c_int
     return lib
 
 
@@ -210,29 +233,36 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device)
         raise ValueError(f"{name} must be contiguous")
 
 
-def mttkrp_cuda(
-    plan_bufs: "PlanBuffers",
+class _Call(NamedTuple):
+    """One checked call's shape: what the launch needs beyond the tensors."""
+
+    variant: str
+    split_mode: str | None
+    device: torch.device
+    nmodes: int
+    nnz_pad: int
+    num_blocks: int
+    rows_per_block: int
+    dtype: torch.dtype
+    lead: tuple[int, ...]
+    batch: int
+    rank: int
+    chunk: int  # the block variant's rank columns per CTA (0 for the split variant)
+    grid: TileGrid | None  # the tile mode's grid
+
+
+def _checked_call(
+    bufs: "PlanBuffers",
     factors: Sequence[torch.Tensor],
     mode: int,
     i_out: int,
-    *,
-    variant: str | None = None,
-    split_mode: str | None = None,
-) -> torch.Tensor:
-    """Launch an MTTKRP kernel; returns ``(..., i_out, R)`` float32.
-
-    ``factors`` are all ``(I_k, R)`` or all ``(B, I_k, R)`` (one call
-    covers the restart batch), float32 or bfloat16, contiguous, on the
-    plan buffers' CUDA device.  ``variant`` is ``"split"`` (the default)
-    or ``"block"``; ``split_mode`` the split variant's mode, by default the
-    one the plan buffers' ``rows_contiguous`` flag picks
-    (``split_mode_for``).  The kernel runs on the current stream and is
-    not synchronised.
-    """
+    variant: str | None,
+    split_mode: str | None,
+) -> _Call:
+    """Check the call's tensors and options; raise on anything the kernels do not take."""
     variant = "split" if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; the kernels are {VARIANTS}")
-    bufs = plan_bufs
     if variant == "split":
         split_mode = split_mode_for(bufs, split_mode)
     elif split_mode is not None:
@@ -281,6 +311,7 @@ def mttkrp_cuda(
                 f"factor {k} has {rows} rows; the plan indexes up to row "
                 f"{bufs.index_bound[k] - 1}"
             )
+    chunk, grid = 0, None
     if variant == "block":
         chunk = rank_chunk(rank, rows_per_block)
         passes = (batch, -(-rank // chunk))
@@ -291,15 +322,79 @@ def mttkrp_cuda(
         passes = (-(-batch // SPLIT_BATCH_CHUNK), -(-rank // SPLIT_RANK_CHUNK))
     if max(passes) > MAX_GRID_YZ:
         raise ValueError(f"batch={batch} / rank={rank} exceed the grid's y/z limit")
+    return _Call(variant, split_mode, device, nmodes, nnz_pad, num_blocks, rows_per_block, dtype,
+                 lead, batch, rank, chunk, grid)
 
-    out = torch.empty(lead + (i_out, rank), dtype=torch.float32, device=device)
+
+def _carries(call: _Call, alloc) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split variant's carry scratch, ``(values, rows or blocks)``, from
+    ``alloc(shape, dtype)``: per slice its first and last row's partial sums
+    (row-run mode) or its first and last block's tiles (tile mode)."""
+    if call.split_mode == "tiles":
+        slices = call.grid.ctas
+        tail = (call.batch, call.rows_per_block, call.rank)
+    else:
+        slices = split_slices(call.nmodes, call.batch, call.dtype, call.device)
+        tail = (call.batch, call.rank)
+    return alloc((slices, 2) + tail, torch.float32), alloc((slices, 2), torch.int32)
+
+
+def _launch_split(lib, call: _Call, bufs: "PlanBuffers", factors: Sequence[torch.Tensor],
+                  mode: int, i_out: int, out: torch.Tensor, carry_val: torch.Tensor,
+                  carry_idx: torch.Tensor) -> int:
+    """Queue the split variant's two launches on the current stream; returns
+    the C entry point's cudaError_t."""
+    ptrs = (ctypes.c_void_p * call.nmodes)(*[f.data_ptr() for f in factors])
+    batch_strides = (ctypes.c_int64 * call.nmodes)(
+        *[f.stride(0) if call.lead else 0 for f in factors])
+    stream = torch.cuda.current_stream(call.device).cuda_stream
+    align = 16 if call.dtype == torch.float32 else 8
+    vec = call.rank % 4 == 0 and all(f.data_ptr() % align == 0 for f in factors)
+    common = (bufs.indices.data_ptr(), bufs.values.data_ptr(), bufs.block_nnz_start.data_ptr(),
+              bufs.block_real_end.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
+              ctypes.cast(batch_strides, ctypes.c_void_p), out.data_ptr(), carry_val.data_ptr(),
+              carry_idx.data_ptr(), call.nnz_pad, call.num_blocks, call.nmodes, mode, call.rank,
+              call.batch, i_out)
+    if call.split_mode == "tiles":
+        if bufs.indices.data_ptr() % 16 or bufs.values.data_ptr() % 16:
+            raise ValueError("the tile mode stages the stream by bulk copies: the plan's "
+                             "indices and values must be 16-byte aligned")
+        return lib.mttkrp_tiles_launch(*common, call.rows_per_block, call.grid.ctas,
+                                       _FACTOR_DTYPES[call.dtype], int(vec), stream)
+    return lib.mttkrp_split_launch(*common, int(carry_idx.shape[0]) // SPLIT_WARPS_PER_CTA,
+                                   _FACTOR_DTYPES[call.dtype], int(vec), stream)
+
+
+def mttkrp_cuda(
+    plan_bufs: "PlanBuffers",
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    i_out: int,
+    *,
+    variant: str | None = None,
+    split_mode: str | None = None,
+) -> torch.Tensor:
+    """Launch an MTTKRP kernel; returns ``(..., i_out, R)`` float32.
+
+    ``factors`` are all ``(I_k, R)`` or all ``(B, I_k, R)`` (one call
+    covers the restart batch), float32 or bfloat16, contiguous, on the
+    plan buffers' CUDA device.  ``variant`` is ``"split"`` (the default)
+    or ``"block"``; ``split_mode`` the split variant's mode, by default the
+    one the plan buffers' ``rows_contiguous`` flag picks
+    (``split_mode_for``).  The kernel runs on the current stream and is
+    not synchronised.
+    """
+    bufs = plan_bufs
+    call = _checked_call(bufs, factors, mode, i_out, variant, split_mode)
+    device = call.device
+    out = torch.empty(call.lead + (i_out, call.rank), dtype=torch.float32, device=device)
     if i_out == 0:
         return out
-    ptrs = (ctypes.c_void_p * nmodes)(*[f.data_ptr() for f in factors])
-    batch_strides = (ctypes.c_int64 * nmodes)(*[f.stride(0) if lead else 0 for f in factors])
-    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        if variant == "block":
+        if call.variant == "block":
+            ptrs = (ctypes.c_void_p * call.nmodes)(*[f.data_ptr() for f in factors])
+            batch_strides = (ctypes.c_int64 * call.nmodes)(
+                *[f.stride(0) if call.lead else 0 for f in factors])
             err = _library("block").mttkrp_launch(
                 bufs.indices.data_ptr(),
                 bufs.values.data_ptr(),
@@ -308,90 +403,89 @@ def mttkrp_cuda(
                 ctypes.cast(ptrs, ctypes.c_void_p),
                 ctypes.cast(batch_strides, ctypes.c_void_p),
                 out.data_ptr(),
-                nmodes,
+                call.nmodes,
                 mode,
-                rank,
-                chunk,
-                rows_per_block,
-                num_blocks,
+                call.rank,
+                call.chunk,
+                call.rows_per_block,
+                call.num_blocks,
                 i_out,
-                batch,
-                _FACTOR_DTYPES[dtype],
-                stream,
-            )
-        elif split_mode == "tiles":
-            # Carries: the tiles of each slice's (CTA's) first and last block.
-            carry_val = torch.empty((grid.ctas, 2, batch, rows_per_block, rank),
-                                    dtype=torch.float32, device=device)
-            carry_blk = torch.empty((grid.ctas, 2), dtype=torch.int32, device=device)
-            align = 16 if dtype == torch.float32 else 8
-            vec = rank % 4 == 0 and all(f.data_ptr() % align == 0 for f in factors)
-            if bufs.indices.data_ptr() % 16 or bufs.values.data_ptr() % 16:
-                raise ValueError("the tile mode stages the stream by bulk copies: the plan's "
-                                 "indices and values must be 16-byte aligned")
-            err = _library("split").mttkrp_tiles_launch(
-                bufs.indices.data_ptr(),
-                bufs.values.data_ptr(),
-                bufs.block_nnz_start.data_ptr(),
-                bufs.block_real_end.data_ptr(),
-                ctypes.cast(ptrs, ctypes.c_void_p),
-                ctypes.cast(batch_strides, ctypes.c_void_p),
-                out.data_ptr(),
-                carry_val.data_ptr(),
-                carry_blk.data_ptr(),
-                nnz_pad,
-                num_blocks,
-                nmodes,
-                mode,
-                rank,
-                batch,
-                i_out,
-                rows_per_block,
-                grid.ctas,
-                _FACTOR_DTYPES[dtype],
-                int(vec),
-                stream,
+                call.batch,
+                _FACTOR_DTYPES[call.dtype],
+                torch.cuda.current_stream(device).cuda_stream,
             )
         else:
-            slices = split_slices(nmodes, batch, dtype, device)
-            # Carries: each slice's first and last row and their partial sums.
-            carry_val = torch.empty((slices, 2, batch, rank), dtype=torch.float32, device=device)
-            carry_row = torch.empty((slices, 2), dtype=torch.int32, device=device)
-            align = 16 if dtype == torch.float32 else 8
-            vec = rank % 4 == 0 and all(f.data_ptr() % align == 0 for f in factors)
-            err = _library("split").mttkrp_split_launch(
-                bufs.indices.data_ptr(),
-                bufs.values.data_ptr(),
-                bufs.block_nnz_start.data_ptr(),
-                bufs.block_real_end.data_ptr(),
-                ctypes.cast(ptrs, ctypes.c_void_p),
-                ctypes.cast(batch_strides, ctypes.c_void_p),
-                out.data_ptr(),
-                carry_val.data_ptr(),
-                carry_row.data_ptr(),
-                nnz_pad,
-                num_blocks,
-                nmodes,
-                mode,
-                rank,
-                batch,
-                i_out,
-                slices // SPLIT_WARPS_PER_CTA,
-                _FACTOR_DTYPES[dtype],
-                int(vec),
-                stream,
-            )
-    _raise_on(err, variant)
+            carry_val, carry_idx = _carries(
+                call, lambda shape, dtype: torch.empty(shape, dtype=dtype, device=device))
+            err = _launch_split(_library("split"), call, bufs, factors, mode, i_out, out,
+                                carry_val, carry_idx)
+    _raise_on(err, call.variant)
     mttkrp_cuda.launches += 1
-    mttkrp_cuda.launches_by_variant[variant] += 1
-    if variant == "split":
-        mttkrp_cuda.launches_by_mode[split_mode] += 1
+    mttkrp_cuda.launches_by_variant[call.variant] += 1
+    if call.variant == "split":
+        mttkrp_cuda.launches_by_mode[call.split_mode] += 1
     return out
 
 
+class AuditCounts(NamedTuple):
+    """What the split kernel's audit build counted over one call, on the card."""
+
+    stores: torch.Tensor  # (..., i_out, R) int32: the stores each output element received
+    nonzeros: torch.Tensor  # (B,) int64: stream entries each restart consumed as nonzeros
+    index_columns: torch.Tensor  # (B,) int64: index columns read for those nonzeros
+    factor_rows: torch.Tensor  # (B,) int64: factor rows gathered for those nonzeros
+    entries_read: torch.Tensor  # () int64: stream entries read (row-run) or staged (tile), one pass
+    uninit_reads: torch.Tensor  # () int64: reads of a carry, partial sum or tile row never written
+
+
+# The audit build takes its counters' addresses through a setter that the
+# launch then reads, so a call sets and launches under one lock.
+_AUDIT_LOCK = threading.Lock()
+
+
+def mttkrp_cuda_audit(
+    plan_bufs: "PlanBuffers",
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    i_out: int,
+    *,
+    split_mode: str | None = None,
+) -> tuple[torch.Tensor, AuditCounts]:
+    """The split kernel's audit build on the same grid as ``mttkrp_cuda``'s
+    split variant: returns ``(out, AuditCounts)``, both on the card and not
+    synchronised.  It takes what ``mttkrp_cuda`` takes, and fills the output
+    and the carry values with ``AUDIT_UNSET`` and the carry rows or blocks
+    with ``AUDIT_UNSET_IDX`` first, so that an element never stored stays a
+    NaN and a carry read before it is written is counted."""
+    bufs = plan_bufs
+    call = _checked_call(bufs, factors, mode, i_out, "split", split_mode)
+    device = call.device
+
+    def unset(shape, dtype):
+        fill = AUDIT_UNSET if dtype == torch.float32 else AUDIT_UNSET_IDX
+        return torch.full(shape, fill, dtype=torch.int32, device=device).view(dtype)
+
+    out = unset(call.lead + (i_out, call.rank), torch.float32)
+    stores = torch.zeros((call.batch, i_out, call.rank), dtype=torch.int32, device=device)
+    per_restart = torch.zeros((call.batch, 3), dtype=torch.int64, device=device)
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    if i_out:
+        carry_val, carry_idx = _carries(call, unset)
+        lib = _library("split_audit")
+        with torch.cuda.device(device), _AUDIT_LOCK:
+            lib.mttkrp_audit_buffers(stores.data_ptr(), per_restart.data_ptr(), counts.data_ptr())
+            err = _launch_split(lib, call, bufs, factors, mode, i_out, out, carry_val, carry_idx)
+        _raise_on(err, "split_audit")
+        mttkrp_cuda_audit.launches += 1
+    return out, AuditCounts(stores.reshape(call.lead + (i_out, call.rank)), per_restart[:, 0],
+                            per_restart[:, 1], per_restart[:, 2], counts[0], counts[1])
+
+
 def reset_launch_counts() -> None:
-    """Set the launch count and every per-variant and per-mode count to 0."""
+    """Set the launch count and every per-variant and per-mode count to 0,
+    and the audit build's launch count."""
     mttkrp_cuda.launches = 0
+    mttkrp_cuda_audit.launches = 0
     mttkrp_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
     mttkrp_cuda.launches_by_mode = dict.fromkeys(SPLIT_MODES, 0)
 

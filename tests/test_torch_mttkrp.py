@@ -354,7 +354,7 @@ def test_split_partition_stores_every_row_once(name):
         want = mttkrp_plan_ref(bufs, tf, mode, t.shape[mode]).numpy()
         oracle = np.asarray(jm.mttkrp_ref(tj, [jnp.asarray(f) for f in facs], mode))
         for slices in SLICES:
-            out, stores, _ = partition.emulate_split(bufs, tf, mode, t.shape[mode], slices)
+            out, stores, _ = partition.emulate_split(bufs, tf, mode, t.shape[mode], slices)[:3]
             assert stores.tolist() == [1] * t.shape[mode], f"mode {mode}, {slices} slices"
             np.testing.assert_allclose(out.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
             np.testing.assert_allclose(out.numpy(), oracle, rtol=F32_TOL, atol=F32_TOL)
@@ -368,7 +368,7 @@ def test_split_partition_cases_reach_their_edges():
         plan = tst.build_mttkrp_plan(t, 0, tile_nnz=tile_nnz, rows_per_block=rows_per_block)
         bufs = tops.plan_device_buffers(plan, "cpu")
         facs = factors_from_numpy(_np_factors(t.shape, rank), device="cpu")
-        _, _, carry_rows = partition.emulate_split(bufs, facs, 0, t.shape[0], slices)
+        _, _, carry_rows = partition.emulate_split(bufs, facs, 0, t.shape[0], slices)[:3]
         bounds = partition.slice_bounds(plan.nnz_pad, slices)[1:-1]
         return t, bufs, carry_rows, bounds
 
@@ -408,7 +408,7 @@ def test_split_partition_skips_padding_by_position_not_value():
     tf = factors_from_numpy(facs, device="cpu")
     bufs = tops.plan_device_buffers(tst.build_mttkrp_plan(t, 0, tile_nnz=8, rows_per_block=8),
                                     "cpu")
-    out, stores, _ = partition.emulate_split(bufs, tf, 0, 40, 5)
+    out, stores, _ = partition.emulate_split(bufs, tf, 0, 40, 5)[:3]
     assert stores.tolist() == [1] * 40 and bool(torch.isfinite(out).all())
     assert bool(torch.isnan(mttkrp_plan_ref(bufs, tf, 0, 40)).any())
     np.testing.assert_allclose(out.numpy(), tm.mttkrp_ref(t, tf, 0).numpy(), rtol=F32_TOL,
