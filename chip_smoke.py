@@ -5,7 +5,10 @@ Run from the root of a checkout on a machine with the card:
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (exit code 1, no result line):
+Phases, each of which fails the run (exit code 1, no result line).  They
+run in the order 1, 2, 6-8, 13, 16, 3-5, 12's Table II part, 10, 9, 11,
+12, 14, 15: phase 3's tensor is drawn in a child process on the host while
+phases 6-8, 13 and 16 keep the card busy.
 
   1. the card, the versions, both TF32 flags, and the build of every CUDA
      source with nvcc for sm_90a;
@@ -19,7 +22,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      and the port's CP-ALS on the card against the same run on the CPU
      (fits within FUSED_FIT_TOL);
   3. the main path at full size: a NELL-2 stand-in at Table II size (dims
-     12100 x 9200 x 28800, 76.9M drawn nonzeros, Zipf 0.85), rank 16,
+     12100 x 9200 x 28800, 76.9M drawn nonzeros, Zipf 0.85, drawn in a
+     child process and written to the files phase 14 reads), rank 16,
      through eager ``cp_als(impl="kernel")`` (5 sweeps) and
      ``cp_als_fused`` with 4 batched restarts (5 sweeps, one sync); per
      mode the largest block's and the hottest row's share of nonzeros and
@@ -149,15 +153,15 @@ Phases, each of which fails the run (exit code 1, no result line):
      absolute terms), one split launch per call on every rank, a
      ``mode_ordered`` call bit for bit, each rank's launch on its shard plan
      against the plain version; (b) phase 3's tensor, memory-mapped from
-     files the script writes after phase 10, on 4 ranks sharing the card:
+     the files its draw wrote, on 4 ranks sharing the card:
      eager ``cp_als(impl="sharded")`` in both schemes and ``cp_als_fused``
      with 4 restarts (``mode_ordered``), 5 sweeps each, fits within
      FUSED_FIT_TOL of phase 3's, launches per rank, the setups' host
      seconds, per mode the local launch alone (one rank at a time, queued
      behind a sleep), the collective alone and the whole call, peak memory
      per rank; (c) ``run_experiments(impls=("sharded",), n_shards=8)`` on
-     phase 11's stand-ins, each rank's launches and the fits against phase
-     11's;
+     phase 11's first stand-in (NELL-2@0.026), each rank's launches and the
+     fit against phase 11's;
  15. kernel contracts on the card: the split MTTKRP kernel's audit build
      (``kernel.mttkrp_cuda_audit``, the same source built with
      ``-DMTTKRP_AUDIT`` beside the production library) on phase 10's lex
@@ -174,6 +178,23 @@ Phases, each of which fails the run (exit code 1, no result line):
      nonzeros), and the output bit for bit the production kernel's.  Then
      each flash kernel's C entry point into a NaN-filled output on phase
      6's input sets: no NaN left, equal to the wrapper's call.
+ 16. training and the MoE family on the card: (a) each flash kernel's
+     row log-sum-exp (``return_lse``) against the plain version's at the
+     prefill's shape (bf16 at head_dim 128 and 64, float32) and the
+     training shape, the output bit for bit the one without it; (b)
+     gradients through ``blocked_attention`` (kernel forward, plain
+     recomputing backward) against autograd through the plain dense
+     attention in float32; (c) ``moe_layer`` at granite-moe-1b-a400m's
+     width on 8192 tokens against a per-token oracle, its dispatch and
+     experts' device ms and peak memory; (d) a reduced granite-moe config's
+     float32 AdamW train steps on the card against the CPU, one bf16 SGD
+     step as (e) runs it (the cotangent fence in, MoE routing, remat
+     "full") card against CPU per leaf, then a reduced
+     ``train()`` with a checkpoint, an injected fault (retry, then restore)
+     and a resume; (e) granite-moe-1b-a400m at full width and depth through
+     ``launch/train.py``'s path, B = 4, S = 4096, 2 microbatches, remat
+     "full", 6 steps: every loss, the step time, tokens/s, peak memory, the
+     flash launches (96 a step), device time by class and model FLOP/s.
 
 The last four lines are phase 15's facts (``{"phase15": ...}``), the card's
 ``name, power.limit``, a JSON object
@@ -183,7 +204,9 @@ the CP-ALS paths of phases 3, 9, 10, 11, 12 and 14 under ``launches_by_path``,
 its per-ordering times, phase 11's per-tensor times and phase 12's tunes; its
 tile mode, on the blocked plans of phase 10, with the block kernel's time
 as ``previous_ms``; and the wgmma flash kernel
-with the ``mma.sync`` kernel's, and phase 13's decode numbers), and
+with the ``mma.sync`` kernel's, phase 13's decode numbers and phase 16's
+training numbers, its launches on the training path under
+``launches_by_path``), and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
@@ -195,6 +218,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -243,6 +267,14 @@ from repro_torch.kernels.flash_attention import kernel as fkmod  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import NEG_INF, max_row_error  # noqa: E402
 from repro_torch.models.attention import project_qkv  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.models import model_zoo as tzoo  # noqa: E402
+from repro_torch.convert import tree_to_numpy  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.optim import AdamW, init_adamw_state  # noqa: E402
+from repro_torch.runtime.train_loop import TrainLoopConfig, train  # noqa: E402
 from repro_torch.models.model_zoo import init_model, make_prefill_fn  # noqa: E402
 from repro_torch.models.transformer import forward  # noqa: E402
 from repro_torch.dse import (  # noqa: E402
@@ -315,6 +347,31 @@ SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep ahead of a launch: ~0.5 s on a
 # 4 sweeps: a batch's 10 fill the queue, and that wait is back-pressure, not
 # a read of a result.
 SLEEP_CHECK_SWEEPS = 4
+
+
+# Phase 16: training.  granite-moe-1b-a400m at full width and depth; the
+# batch of 4 x 4096 tokens is cut from a pretraining batch of millions of
+# tokens to what one card holds with float32 masters and AdamW's moments.
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096  # above 2048: attention_impl "auto" takes the kernel
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 6
+LSE_TOL = 1e-4  # tests/test_torch_train_cuda.py
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # the same file
+MOE_TOL = 2e-4  # tests/test_moe.py
+STEP_TOL = 1e-4
+# 16(d)'s bf16 step (tests/test_torch_train_cuda.py): each leaf's update,
+# card against CPU, within 0.25 in norm and elementwise within 1e-1 of the
+# leaf's largest update on all but 3% of its elements; and the card's update
+# no farther from the float32 config's than 1.25 x the CPU's.  bf16 router
+# logits flip near-tied top-k choices differently on each side: measured on
+# the card, 0.02-0.17 in norm, at most 1.4% of elements off, ratio <= 1.12,
+# with each side 0.03-0.25 from the float32 update.
+BF16_STEP_TOL = 0.25
+BF16_STEP_ELEM = 1e-1
+BF16_STEP_FLIPS = 3e-2
+BF16_F32_RATIO = 1.25
 
 
 class SmokeFailure(Exception):
@@ -577,19 +634,63 @@ def mttkrp_flops(plan, rank: int, nnz: int) -> int:
     return nnz * rank * (len(plan.shape) + 1)
 
 
-def cp_als_phases(dev, card: str) -> tuple[dict, tst.SparseTensor, np.ndarray, np.ndarray]:
+class Nell2Draw:
+    """Phase 3's tensor, drawn in a child process by ``random_sparse_tensor``
+    (the same draw, seed and arguments as in this process) into
+    ``indices.npy`` and ``values.npy``, which phase 3 loads and phase 14's
+    ranks memory-map.  It runs while phases 6-8, 13 and 16 keep the card
+    busy; ``stop`` ends it if the run fails first."""
+
+    def __init__(self, directory: str):
+        self.paths = (str(Path(directory, "indices.npy")), str(Path(directory, "values.npy")))
+        code = "\n".join([
+            "import json, time",
+            "import numpy as np",
+            "from repro_torch.core import sparse_tensor as tst",
+            "t0 = time.perf_counter()",
+            f"t = tst.random_sparse_tensor({NELL2_DIMS!r}, {NELL2_NNZ}, seed=0, "
+            f"zipf_a={NELL2_ZIPF!r}, shuffle=True)",
+            "drawn = time.perf_counter() - t0",
+            f"np.save({self.paths[0]!r}, t.indices)",
+            f"np.save({self.paths[1]!r}, t.values)",
+            "print(json.dumps({'draw_s': drawn, 'write_s': time.perf_counter() - t0 - drawn}))"])
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(REPO / "src") + os.pathsep + env.get("PYTHONPATH", "")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, env=env)
+
+    def result(self) -> tuple[tst.SparseTensor, dict]:
+        t0 = time.perf_counter()
+        out, err = self.proc.communicate()
+        info = {"waited_s": time.perf_counter() - t0}
+        check(self.proc.returncode == 0,
+              f"the NELL-2 draw failed with code {self.proc.returncode}: {err[-2000:]}")
+        info.update(json.loads(out.strip().splitlines()[-1]))
+        t0 = time.perf_counter()
+        tensor = tst.SparseTensor(np.load(self.paths[0]), np.load(self.paths[1]), NELL2_DIMS)
+        info["load_s"] = time.perf_counter() - t0
+        return tensor, info
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def cp_als_phases(dev, card: str, draw: Nell2Draw
+                  ) -> tuple[dict, tst.SparseTensor, np.ndarray, np.ndarray]:
     """Phases 3-5: the CP-ALS main path at NELL-2 Table II size.  Returns the
     MTTKRP kernel's entry of the ``kernels`` line, the tensor, the fused
     run's fits (restarts x sweeps), for phases 10, 12 and 14, and the eager
     run's, for phase 14."""
     # -- phase 3: the main path at Table II size -----------------------------
     phase("phase 3: NELL-2 stand-in at Table II size, rank 16")
-    t0 = time.perf_counter()
-    tensor = tst.random_sparse_tensor(
-        NELL2_DIMS, NELL2_NNZ, seed=0, zipf_a=NELL2_ZIPF, shuffle=True)
-    host_data_s = time.perf_counter() - t0
+    tensor, drawn = draw.result()
+    host_data_s = drawn["draw_s"]
     print(f"  tensor: dims {tensor.shape}, {NELL2_NNZ} drawn, {tensor.nnz} after coalescing, "
-          f"host {host_data_s:.2f} s")
+          f"host {host_data_s:.2f} s in a child process beside phases 6-8, 13 and 16 (written "
+          f"in {drawn['write_s']:.2f} s); waited {drawn['waited_s']:.2f} s for it here, loaded "
+          f"in {drawn['load_s']:.2f} s")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(tensor.nmodes) as pool:
         plans = list(pool.map(lambda m: ops.get_plan(tensor, m), range(tensor.nmodes)))
@@ -2121,9 +2222,11 @@ def decode_phase(dev, card: str) -> dict:
 SHARD_WORLDS = (1, 3, 8)
 TABLE2_SHARDS = 4
 ENGINE_SHARDS = 8
-# (c) runs phase 11's first two stand-ins: with PATENTS@5.6e-4 as well,
-# phase 14 took 252-270 s, past its 240 s target.
-SHARDED_ENGINE_TENSORS = ENGINE_TENSORS[:2]
+# (c) runs phase 11's first stand-in: with PATENTS@5.6e-4 as well, phase 14
+# took 252-270 s, past its 240 s target; LBNL@1.0 took 77-80 s of it more,
+# and the whole script 783-892 s of the 1200 s it may take.  The 5-mode
+# sharded MTTKRP stays in (a), LBNL@1.0's engine run in phase 11.
+SHARDED_ENGINE_TENSORS = ENGINE_TENSORS[:1]
 SHARD_REPS = 5  # timed repeats per mode in (b)
 
 
@@ -2537,6 +2640,450 @@ def contract_phase(dev, card: str, earlier: list[dict]) -> dict:
     )
 
 
+def _qkv_on(dev, dtype, b, s, h, kvh, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+
+
+def lse_phase(dev, card: str) -> dict:
+    """Phase 16 (a): each flash kernel's log-sum-exp against the plain
+    version's (1e-4 absolute and relative), and its output bit for bit the
+    output without it; then the kernel's time with and without the lse store
+    at the training shape."""
+    cases = [  # label, dtype, B, S, H, KV, D
+        ("prefill shape, bf16 D=128", torch.bfloat16, PREFILL_BATCH, PREFILL_SEQ, 16, 8, 128),
+        ("prefill shape, bf16 D=64", torch.bfloat16, PREFILL_BATCH, PREFILL_SEQ, 16, 8, 64),
+        ("prefill shape, float32 D=128", torch.float32, PREFILL_BATCH, PREFILL_SEQ, 16, 8, 128),
+        ("training shape, bf16 D=64", torch.bfloat16, TRAIN_BATCH // TRAIN_MICROBATCHES,
+         TRAIN_SEQ, 16, 8, 64),
+        ("uneven, bf16 D=64", torch.bfloat16, 3, 1000, 4, 1, 64),
+        ("uneven, float32 D=64", torch.float32, 3, 1000, 4, 2, 64),
+    ]
+    worst = 0.0
+    for label, dtype, b, s, h, kvh, d in cases:
+        q, k, v = _qkv_on(dev, dtype, b, s, h, kvh, d, seed=s + d)
+        _, want = flash_attention_plain(q, k, v, causal=True, q_chunk=PLAIN_Q_CHUNK,
+                                        return_lse=True)
+        routed = fkmod.variant_for(dtype, d)
+        for variant in (routed, "mma") if dtype == torch.bfloat16 else (routed,):
+            out, lse = fkmod.flash_attention_cuda(q, k, v, causal=True, variant=variant,
+                                                  return_lse=True)
+            same = torch.equal(out, fkmod.flash_attention_cuda(q, k, v, causal=True,
+                                                               variant=variant))
+            diff = (lse - want).abs()
+            ok = bool((diff <= LSE_TOL + LSE_TOL * want.abs()).all()) and same
+            worst = max(worst, float(diff.max()))
+            print(f"  lse {label} ({variant}): max |kernel - plain| {float(diff.max()):.3e} "
+                  f"(tol {LSE_TOL:g} abs + rel), out bit for bit the out without lse: {same} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"the {variant} kernel's lse or output is wrong: {label}")
+        del q, k, v, want, out, lse
+    q, k, v = _qkv_on(dev, torch.bfloat16, TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, 16, 8,
+                      64, seed=5)
+    plain = median_ms(lambda: fkmod.flash_attention_cuda(q, k, v), FLASH_REPS)
+    with_lse = median_ms(lambda: fkmod.flash_attention_cuda(q, k, v, return_lse=True),
+                         FLASH_REPS)
+    print(f"  wgmma kernel at the training shape {tuple(q.shape)}: {plain:.3f} ms without lse, "
+          f"{with_lse:.3f} ms with it  [{card}]")
+    return dict(max_abs_err=worst, train_shape_ms=plain, train_shape_lse_ms=with_lse)
+
+
+def grad_phase(dev, card: str) -> dict:
+    """Phase 16 (b): gradients through ``blocked_attention`` (kernel forward,
+    plain recomputing backward, full-width blocks 512 x 1024) against
+    autograd through the plain dense attention in float32; then the
+    backward's time at the training shape beside SDPA's backward."""
+    cases = [  # label, dtype, B, S, H, KV, causal
+        ("bf16 causal, GQA 16/8, S=1024", torch.bfloat16, 1, 1024, 16, 8, True),
+        ("bf16 causal, GQA 16/8, S=4096", torch.bfloat16, 1, 4096, 16, 8, True),
+        ("bf16 not causal, GQA 4/1, S=1000", torch.bfloat16, 2, 1000, 4, 1, False),
+        ("float32 causal, GQA 16/8, S=1024", torch.float32, 1, 1024, 16, 8, True),
+        ("float32 causal, GQA 4/2, S=1000", torch.float32, 2, 1000, 4, 2, True),
+    ]
+    worst = {}
+    for label, dtype, b, s, h, kvh, causal in cases:
+        q, k, v = (t.requires_grad_() for t in _qkv_on(dev, dtype, b, s, h, kvh, 64, seed=s))
+        w = torch.randn((b, s, h, 64), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+        out = tattn.blocked_attention(q, k, v, causal, 512, 1024)
+        got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad((tattn._dense_attention(*ref, causal=causal) * w).sum(), ref)
+        rels = [float((g.float() - x).norm() / x.norm()) for g, x in zip(got, want)]
+        ok = max(rels) <= GRAD_TOL[dtype]
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), max(rels))
+        print(f"  grads {label}: ||got - dense f32|| / ||dense f32|| dq {rels[0]:.2e} dk "
+              f"{rels[1]:.2e} dv {rels[2]:.2e} (tol {GRAD_TOL[dtype]:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"blocked-attention gradients disagree with dense autograd: {label}")
+        del q, k, v, w, out, got, ref, want
+    b, s = TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ
+    q, k, v = _qkv_on(dev, torch.bfloat16, b, s, 16, 8, 64, seed=7)
+    out, lse = fkmod.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.randn_like(out)
+    bwd_ms = median_ms(lambda: tattn._blocked_backward(q, k, v, out, lse, dout, causal=True,
+                                                       block_q=512, block_kv=1024), 3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True)
+        sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True), FLASH_REPS)
+    flops = 2 * attention_flops(b, s, 16, 64, True)  # dq, dk, dv: twice the forward's products
+    bound = flops / BF16_FLOPS_PER_S * 1e3
+    print(f"  attention backward at the training shape {tuple(q.shape)} bf16: plain recompute "
+          f"{bwd_ms:.3f} ms, SDPA's backward {sdpa_bwd_ms:.3f} ms, bound {bound:.3f} ms "
+          f"({flops:.3e} flops at 989 TFLOP/s)  [{card}]")
+    return dict(max_rel_err=worst, bwd_ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, bwd_bound_ms=bound)
+
+
+def moe_phase(dev, card: str) -> dict:
+    """Phase 16 (c): ``moe_layer`` at granite-moe-1b-a400m's width (d 1024,
+    32 experts, top-8, moe_d_ff 512) on 8192 tokens, capacity_factor 4 (no
+    drops) in float32, against a per-token oracle (each token's top-k
+    experts' SwiGLU, gate-weighted, ``tests/test_moe.py``); then, in bf16 at
+    the config's capacity, the device ms of the routing with its one-hot
+    dispatch and combine products and of the experts, forward and
+    forward + backward, and the layer's peak memory."""
+    base = get_config(TRAIN_ARCH)
+    e, k, d = base.num_experts, base.top_k, base.d_model
+    cfg = dataclasses.replace(base, capacity_factor=e / k, dtype=torch.float32)
+    params = tmoe.init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = torch.randn((TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, d),
+                    generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    y = tmoe.moe_layer(params, cfg, x)
+    xt = x.reshape(-1, d)
+    vals, idx = torch.topk(torch.softmax(xt @ params["router"], -1), k)
+    vals = vals / vals.sum(-1, keepdim=True)
+    want = torch.zeros_like(xt)
+    for ex in range(e):
+        rows, slot = (idx == ex).nonzero(as_tuple=True)
+        h = xt[rows]
+        f = (torch.nn.functional.silu(h @ params["w_gate"][ex]) * (h @ params["w_up"][ex])) \
+            @ params["w_down"][ex]
+        want.index_add_(0, rows, vals[rows, slot, None] * f)
+    diff = (y.reshape(-1, d) - want).abs()
+    ok = bool((diff <= MOE_TOL + MOE_TOL * want.abs()).all())
+    max_abs = float(diff.max())
+    disp, _, _, _ = tmoe.dispatch(params, cfg, x.reshape(-1, cfg.moe_group_size, d))
+    kept = int(disp.sum())
+    print(f"  moe_layer float32, {xt.shape[0]} tokens, capacity_factor {cfg.capacity_factor:g}: "
+          f"max |layer - oracle| {max_abs:.3e} (tol {MOE_TOL:g} abs + rel), slots kept "
+          f"{kept} of {xt.shape[0] * k} {'ok' if ok else 'FAIL'}")
+    check(ok and kept == xt.shape[0] * k, "moe_layer disagrees with the per-token oracle")
+    del params, x, y, want, disp, xt, diff
+
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    params = {n: p.requires_grad_() for n, p in
+              tmoe.init_moe(torch.Generator(device=dev).manual_seed(0), cfg).items()}
+    x = torch.randn((TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, d),
+                    generator=torch.Generator(device=dev).manual_seed(1), device=dev
+                    ).to(torch.bfloat16).requires_grad_()
+    g, tg = x.shape[0] * x.shape[1] // cfg.moe_group_size, cfg.moe_group_size
+    cap = min(max(1, int(cfg.capacity_factor * k * tg / e)), tg)
+    xe = torch.randn((e, g * cap, d), device=dev, dtype=torch.bfloat16).requires_grad_()
+    with torch.no_grad():
+        layer_ms = median_ms(lambda: tmoe.moe_layer(params, cfg, x), 5)
+        route_ms = median_ms(lambda: tmoe.dispatch(params, cfg, x.reshape(g, tg, d)), 5)
+        experts_ms = median_ms(lambda: tmoe.experts(params, xe), 5)
+    dy = torch.randn_like(x)
+    inputs = [x, *params.values()]
+    layer_fb_ms = median_ms(lambda: torch.autograd.grad(
+        tmoe.moe_layer(params, cfg, x), inputs, dy), 5)
+    dxe = torch.randn_like(xe)
+    experts_fb_ms = median_ms(lambda: torch.autograd.grad(
+        tmoe.experts(params, xe), [xe, *params.values()], dxe, allow_unused=True), 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    torch.autograd.grad(tmoe.moe_layer(params, cfg, x), inputs, dy)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    experts_flops = 3 * 2 * e * g * cap * d * cfg.moe_d_ff
+    onehot_flops = 2 * 2 * g * tg * e * cap * d
+    print(f"  moe_layer bf16 at the training shape {tuple(x.shape)}, capacity {cap} a group: "
+          f"forward {layer_ms:.3f} ms (routing and one-hot tensors {route_ms:.3f} ms, experts "
+          f"{experts_ms:.3f} ms, the dispatch and combine products the rest, "
+          f"{layer_ms - route_ms - experts_ms:.3f} ms); forward + backward {layer_fb_ms:.3f} ms "
+          f"(experts {experts_fb_ms:.3f} ms); forward flops: experts {experts_flops:.3e}, "
+          f"one-hot dispatch and combine {onehot_flops:.3e}; peak memory of one forward + "
+          f"backward above what was held {peak_gb:.2f} GB  [{card}]")
+    return dict(layer_ms=layer_ms, route_ms=route_ms, experts_ms=experts_ms,
+                layer_fwd_bwd_ms=layer_fb_ms, experts_fwd_bwd_ms=experts_fb_ms,
+                peak_gb=peak_gb, max_abs_err=max_abs)
+
+
+def reduced_training_phase(dev, card: str, workdir: str) -> dict:
+    """Phase 16 (d): a reduced granite-moe config, 3 AdamW steps with 2
+    microbatches in float32 on the card against the CPU (losses and gradient
+    norms 1e-4 relative, every parameter leaf 1e-4 in norm), one bf16 step
+    with the fence in against the CPU (``bf16_step_gaps``), then
+    ``train()`` on the card: 10 steps with a checkpoint every 5, step 3
+    failing twice (replayed from the live state) and step 7 once more than
+    the retries allow (restored from step 5's checkpoint), then a resume to
+    step 15."""
+    small = reduced_config(TRAIN_ARCH, dtype=torch.float32, attention_impl="blocked")
+    batches = [next(SyntheticLMStream(small.vocab_size, 256, 4, seed=i)) for i in range(3)]
+    runs = {}
+    # The bf16 cotangent fence is out of both sides here: it rounds to bf16,
+    # so a float32 difference of 1e-7 below it moves a gradient by a bf16
+    # step (2^-8), which AdamW's next steps carry (with it: 3.7e-4 on the
+    # grad norm, the first run of this phase).  The CPU tests hold the fence to JAX's.
+    fence, ttr.grad_fence_bf16 = ttr.grad_fence_bf16, lambda x: x
+    try:
+        for where in ("cpu", dev):
+            state = init_adamw_state(init_model(small, seed=0, device="cpu").to(where), lr=1e-3)
+            step = tzoo.make_train_step(small, AdamW(), num_microbatches=2, device=where)
+            metrics = []
+            for batch in batches:
+                state, m = step(state, batch)
+                metrics.append({key: float(val) for key, val in m.items()})
+            runs[str(where)] = (metrics, tree_to_numpy(state["params"]))
+    finally:
+        ttr.grad_fence_bf16 = fence
+    (cpu_m, cpu_p), (card_m, card_p) = runs["cpu"], runs[str(dev)]
+    gaps = [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(card_m, cpu_m)
+            for key in ("loss", "grad_norm")]
+    leaf_gaps = {}
+
+    def walk(got, want, where=""):
+        if isinstance(want, dict):
+            for key in want:
+                walk(got[key], want[key], f"{where}/{key}")
+        else:
+            leaf_gaps[where] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    walk(card_p, cpu_p)
+    print(f"  reduced {TRAIN_ARCH} float32 (no bf16 fence), 3 AdamW steps, 2 microbatches: losses "
+          f"{[round(m['loss'], 6) for m in card_m]} (card) vs {[round(m['loss'], 6) for m in cpu_m]}"
+          f" (CPU); max relative gap of losses and gradient norms {max(gaps):.2e}, of a "
+          f"parameter leaf (in norm) {max(leaf_gaps.values()):.2e} (tol {STEP_TOL:g})")
+    check(max(gaps) <= STEP_TOL and max(leaf_gaps.values()) <= STEP_TOL,
+          "the reduced train steps on the card differ from the CPU's")
+    bf16 = bf16_step_gaps(dev, card)
+
+    faults = {"n": 0}
+
+    def fault_hook(step):
+        if step == 3 and faults["n"] < 2:
+            faults["n"] += 1
+            raise RuntimeError("injected preemption")
+        if step == 7 and faults["n"] == 2:
+            faults["n"] += 1
+            raise RuntimeError("injected node loss")
+
+    small = reduced_config(TRAIN_ARCH, num_layers=2)
+    mk = lambda: SyntheticLMStream(small.vocab_size, 64, 4)  # noqa: E731
+    loop = lambda n: TrainLoopConfig(total_steps=n, log_every=1, save_every=5,  # noqa: E731
+                                     max_step_retries=2, checkpoint_dir=workdir)
+    first = train(small, loop(10), stream=mk(), fault_hook=fault_hook, device=dev)
+    second = train(small, loop(15), stream=mk(), device=dev)
+    losses = [h["loss"] for h in first["history"] + second["history"]]
+    ok = (faults["n"] == 3 and int(first["state"]["step"]) == 10
+          and second["resumed_from"] == 10 and int(second["state"]["step"]) == 15
+          and all(np.isfinite(losses)))
+    print(f"  reduced train() on the card: 3 faults injected, steps {int(first['state']['step'])}"
+          f", resumed from {second['resumed_from']} to {int(second['state']['step'])}, losses "
+          f"finite {all(np.isfinite(losses))} {'ok' if ok else 'FAIL'}")
+    check(ok, "the reduced training loop did not survive its faults or resume")
+    return dict(max_gap=max(gaps), max_leaf_gap=max(leaf_gaps.values()), bf16=bf16)
+
+
+def _leaf_items(tree: dict, where: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaf_items(val, f"{where}/{key}")
+        else:
+            yield f"{where}/{key}", np.array(val, np.float32)  # a copy: the step updates in place
+
+
+def bf16_step_gaps(dev, card: str) -> dict:
+    """Phase 16 (d), bf16: one SGD step (lr 1, so each update is the
+    gradient) of a reduced granite-moe config as (e) runs it: bf16 compute
+    over float32 masters, the cotangent fence in every layer, MoE routing,
+    remat "full", the blocked attention (the kernel on the card, the plain
+    version on the CPU).  Each leaf's update, card against CPU, within
+    BF16_STEP_TOL in norm and within BF16_STEP_ELEM of its largest element
+    on all but BF16_STEP_FLIPS of its elements; and the card's distance to
+    the float32 config's update (on the CPU) within BF16_F32_RATIO of the
+    CPU's."""
+    small = reduced_config(TRAIN_ARCH, attention_impl="blocked")
+    batch = next(SyntheticLMStream(small.vocab_size, 256, 4, seed=3))
+    updates = {}
+    for label, cfg, where in (("card", small, dev), ("cpu", small, "cpu"),
+                              ("cpu float32", dataclasses.replace(small, dtype=torch.float32),
+                               "cpu")):
+        model = init_model(small, seed=0, device="cpu").to(where)
+        before = dict(_leaf_items(tree_to_numpy(model)))
+        launched = fkmod.flash_attention_cuda.launches
+        state, _ = tzoo.make_train_step(cfg, None, device=where)({"params": model, "lr": 1.0},
+                                                                 batch)
+        if label == "card":
+            check(fkmod.flash_attention_cuda.launches - launched == 2 * small.num_layers,
+                  "the bf16 step did not launch the flash kernel in each layer's forward "
+                  "and recompute")
+        updates[label] = {k: v - before[k]
+                          for k, v in _leaf_items(tree_to_numpy(state["params"]))}
+    rel = {k: float(np.linalg.norm(updates["card"][k] - w) / np.linalg.norm(w))
+           for k, w in updates["cpu"].items()}
+    off = {k: float((np.abs(updates["card"][k] - w) > BF16_STEP_ELEM * np.abs(w).max()).mean())
+           for k, w in updates["cpu"].items()}
+    to_f32 = {side: {k: float(np.linalg.norm(updates[side][k] - w) / np.linalg.norm(w))
+                     for k, w in updates["cpu float32"].items()} for side in ("card", "cpu")}
+    ratio = {k: to_f32["card"][k] / to_f32["cpu"][k] for k in to_f32["cpu"]}
+    worst_rel, worst_off = max(rel, key=rel.get), max(off, key=off.get)
+    worst_ratio = max(ratio, key=ratio.get)
+    ok = (rel[worst_rel] <= BF16_STEP_TOL and off[worst_off] <= BF16_STEP_FLIPS
+          and ratio[worst_ratio] <= BF16_F32_RATIO)
+    print(f"  reduced {TRAIN_ARCH} bf16 (fence in, remat full, kernel forward), one SGD step, "
+          f"each leaf's update card vs CPU: max ||card - cpu|| / ||cpu|| {rel[worst_rel]:.3e} "
+          f"({worst_rel}; tol {BF16_STEP_TOL:g}), max share of elements off by more than "
+          f"{BF16_STEP_ELEM:g} x the leaf's largest {off[worst_off]:.2e} ({worst_off}; tol "
+          f"{BF16_STEP_FLIPS:g}); gap to the float32 config's update, largest: card "
+          f"{max(to_f32['card'].values()):.3e}, CPU {max(to_f32['cpu'].values()):.3e}, largest "
+          f"card / CPU {ratio[worst_ratio]:.3f} ({worst_ratio}; tol {BF16_F32_RATIO:g}) "
+          f"{'ok' if ok else 'FAIL'}  [{card}]")
+    check(ok, "the bf16 train step on the card differs from the CPU's")
+    return dict(max_rel=rel[worst_rel], max_off_share=off[worst_off],
+                max_ratio_to_f32=ratio[worst_ratio], card_to_f32=max(to_f32["card"].values()),
+                cpu_to_f32=max(to_f32["cpu"].values()))
+
+
+def classify_step(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device ms by kernel class
+    (the flash forward by its kernel's name; cuBLAS products; the rest),
+    the top kernels, and the device's busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    classes = {"flash forward": 0.0, "matrix products (cuBLAS)": 0.0, "rest": 0.0}
+    for e in events:
+        name = e.key.lower()
+        if "flash_fwd" in name:
+            key = "flash forward"
+        elif any(t in name for t in ("gemm", "sm90_", "cutlass", "nvjet", "xmma")):
+            key = "matrix products (cuBLAS)"
+        else:
+            key = "rest"
+        classes[key] += e.self_device_time_total / 1e3
+    top = [(e.key[:80], e.count, e.self_device_time_total / 1e3) for e in events[:12]]
+    return dict(classes=classes, busy_ms=sum(classes.values()), top=top)
+
+
+def full_training_phase(dev, card: str, workdir: str, parts: dict) -> dict:
+    """Phase 16 (e): granite-moe-1b-a400m at full width and depth through
+    ``launch/train.py``'s path (``train()``, AdamW with warm-up-cosine), B = 4,
+    S = 4096, 2 microbatches, remat "full", 6 steps, no checkpoint (one
+    would be 16.6 GB): losses, step time, tokens/s, peak memory, flash
+    launches, then one step under the profiler."""
+    cfg = get_config(TRAIN_ARCH)
+    args = tlaunch.parse_args([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
+        "--batch", str(TRAIN_BATCH), "--microbatches", str(TRAIN_MICROBATCHES),
+        "--log-every", "1", "--save-every", str(TRAIN_STEPS + 1), "--checkpoint-dir", workdir,
+        "--device", str(dev)])
+    marks = []
+
+    def mark(step):  # each step's start, after the device is done with the last one
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fkmod.reset_launch_counts()  # the main path of phase 16 starts here
+    res = tlaunch.run(args, fault_hook=mark)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    launches = fkmod.flash_attention_cuda.launches  # the main path of phase 16 ends here
+    by_variant = dict(fkmod.flash_attention_cuda.launches_by_variant)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res["history"]]
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    median_s = float(np.median(step_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    expected = TRAIN_STEPS * 2 * cfg.num_layers * TRAIN_MICROBATCHES
+    attn = attention_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.head_dim, True)
+    model_flops = 6 * cfg.active_param_count() * tokens + 3 * cfg.num_layers * attn
+    print(f"  {TRAIN_ARCH}: {cfg.param_count() / 1e9:.3f}e9 parameters, "
+          f"{cfg.active_param_count() / 1e9:.3f}e9 active; B={TRAIN_BATCH} S={TRAIN_SEQ}, "
+          f"{TRAIN_MICROBATCHES} microbatches, remat {cfg.remat_policy}")
+    print(f"  losses {[round(x, 5) for x in losses]}")
+    print(f"  step wall times {[round(t, 3) for t in step_s]} s (each ends in a sync); median "
+          f"of steps 2-{TRAIN_STEPS} {median_s:.3f} s, {tokens / median_s:.0f} tokens/s; peak "
+          f"memory {peak_gb:.2f} GB; flash launches {launches} (expected {expected}: "
+          f"{cfg.num_layers} layers x forward and recompute x {TRAIN_MICROBATCHES} microbatches "
+          f"x {TRAIN_STEPS} steps), by variant {by_variant}  [{card}]")
+    print(f"  model FLOPs a step {model_flops:.3e} (6 x active params x tokens + 3 x the causal "
+          f"attention's forward flops), {model_flops / median_s / 1e12:.1f} TFLOP/s, "
+          f"{model_flops / median_s / BF16_FLOPS_PER_S:.3f} of 989 TFLOP/s")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    check(launches == expected and by_variant["wgmma"] == launches,
+          f"training launched the flash kernel {launches} times ({by_variant}), not {expected}")
+
+    state = res["state"]
+    del res
+    step_fn = tzoo.make_train_step(cfg, AdamW(), num_microbatches=TRAIN_MICROBATCHES,
+                                   device=dev)
+    batch = next(SyntheticLMStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1))
+    prof = classify_step(lambda: step_fn(state, batch))
+    n_layer_mb = cfg.num_layers * TRAIN_MICROBATCHES
+    isolated = {  # one microbatch-layer's ms (CUDA events) times the count in a step
+        "flash forward (forward and recompute)": 2 * n_layer_mb * parts["lse"]["train_shape_lse_ms"],
+        "attention backward (plain)": n_layer_mb * parts["grad"]["bwd_ms"],
+        "MoE routing, dispatch and combine (fwd, recompute, bwd)": n_layer_mb * (
+            parts["moe"]["layer_fwd_bwd_ms"] + parts["moe"]["layer_ms"]
+            - parts["moe"]["experts_fwd_bwd_ms"] - parts["moe"]["experts_ms"]),
+        "MoE experts (fwd, recompute, bwd)": n_layer_mb * (
+            parts["moe"]["experts_fwd_bwd_ms"] + parts["moe"]["experts_ms"]),
+    }
+    busy = max(prof["busy_ms"], 1e-9)
+    print(f"  one step under torch.profiler: device busy {busy:.1f} ms of a {median_s * 1e3:.1f} "
+          f"ms step (idle share {max(0.0, 1 - busy / (median_s * 1e3)):.3f})")
+    for key, ms in prof["classes"].items():
+        print(f"    by kernel name: {key:<28} {ms:10.1f} ms  {ms / busy:6.1%}")
+    for key, ms in isolated.items():
+        print(f"    by isolated timing x count: {key:<56} {ms:10.1f} ms  {ms / busy:6.1%}")
+    rest = busy - sum(isolated.values())
+    print(f"    by isolated timing x count: {'the rest (projections, lm_head and loss, norms, '
+          f'optimizer)':<56} {rest:10.1f} ms  {rest / busy:6.1%}")
+    for name, count, ms in prof["top"]:
+        print(f"    {ms:10.3f} ms  x{count:<6} {name}")
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, step_s=step_s, median_step_s=median_s,
+                tokens_per_s=tokens / median_s, peak_gb=peak_gb, model_flops=model_flops,
+                mfu=model_flops / median_s / BF16_FLOPS_PER_S, busy_ms=busy,
+                by_kernel_name_ms=prof["classes"], by_isolated_ms=dict(isolated, rest=rest))
+
+
+def training_phase(dev, card: str) -> dict:
+    """Phase 16: training and the MoE family on the card, (a)-(e)."""
+    phase("phase 16: training and the MoE family on the card")
+    t0 = time.perf_counter()
+    parts = {"lse": lse_phase(dev, card), "grad": grad_phase(dev, card),
+             "moe": moe_phase(dev, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        parts["reduced"] = reduced_training_phase(dev, card, str(Path(workdir, "reduced")))
+        parts["full"] = full_training_phase(dev, card, str(Path(workdir, "full")), parts)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    parts["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16 took {parts['seconds']:.1f} s")
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -2560,32 +3107,38 @@ def main() -> int:
         for kernel, resources in build.ptxas_resources(lib.log).items():
             print(f"    {kernel[:110]}: {resources}")  # the mangled name, ptxas -v
 
-    # -- phase 2: kernel against plain, small CP-ALS card vs CPU -------------
-    phase("phase 2: kernel vs plain version on the card")
-    phase_kernel_cases(dev)
-
-    mttkrp_entry, nell2, lex_fits, eager_fits = cp_als_phases(dev, card)
-    # Phase 12's Table II part and phase 10 run here, while phase 3's tensor
-    # and lex plans are resident.
-    table2 = autotune_table2_phase(dev, card, nell2, lex_fits)
-    ordered = ordering_phase(dev, card, nell2, lex_fits)
-    # Phase 14's ranks memory-map phase 3's tensor instead of drawing it again.
+    # Phase 3's tensor is drawn on the host while the LM phases (6-8, 13 and
+    # 16) keep the card busy; phase 14's ranks memory-map its files.
     shard_dir = tempfile.mkdtemp(prefix="chip_smoke_nell2_")
+    draw = Nell2Draw(shard_dir)
     try:
+        # -- phase 2: kernel against plain, small CP-ALS card vs CPU ---------
+        phase("phase 2: kernel vs plain version on the card")
+        phase_kernel_cases(dev)
+        flash_entry = lm_phases(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        decoded = decode_phase(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained = training_phase(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mttkrp_entry, nell2, lex_fits, eager_fits = cp_als_phases(dev, card, draw)
+        # Phase 12's Table II part and phase 10 run here, while phase 3's
+        # tensor and lex plans are resident.
+        table2 = autotune_table2_phase(dev, card, nell2, lex_fits)
+        ordered = ordering_phase(dev, card, nell2, lex_fits)
         return _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, table2,
-                                   ordered, shard_dir)
+                                   ordered, draw.paths, flash_entry, decoded, trained)
     finally:
+        draw.stop()
         shutil.rmtree(shard_dir, ignore_errors=True)
 
 
 def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, table2, ordered,
-                        shard_dir) -> int:
-    t0 = time.perf_counter()
-    paths = (str(Path(shard_dir, "indices.npy")), str(Path(shard_dir, "values.npy")))
-    np.save(paths[0], nell2.indices)
-    np.save(paths[1], nell2.values)
+                        paths, flash_entry, decoded, trained) -> int:
     nell2_shape = nell2.shape
-    print(f"phase 3's tensor written for phase 14's ranks in {time.perf_counter() - t0:.1f} s")
     del nell2
     gc.collect()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -2594,9 +3147,6 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
     torch.cuda.empty_cache()
     print(f"device memory held after the CP-ALS phases: {held_gb:.2f} GB, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after clearing the plan memos")
-    flash_entry = lm_phases(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
     served = service_phase(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2604,9 +3154,6 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
     gc.collect()
     torch.cuda.empty_cache()
     tuned = autotune_phase(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    decoded = decode_phase(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, card, paths, nell2_shape, eager_fits, lex_fits,
@@ -2678,8 +3225,12 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
         "runs", "ref", "speedup", "energy", "engine_s", "recon_s", "gates_s", "reorder_s")}
     mttkrp_entry["autotune"] = dict(table2={k: v for k, v in table2.items() if k != "launches"},
                                     **{k: v for k, v in tuned.items() if not k.startswith("launches")})
-    flash_entry["launches_by_path"] = {"prefill (phase 7)": flash_entry["launches"],
-                                       "decode_step, BatchServer (phase 13)": 0}
+    flash_entry["launches_by_path"] = {
+        "prefill (phase 7)": flash_entry["launches"], "decode_step, BatchServer (phase 13)": 0,
+        f"train(), {TRAIN_ARCH} full width (phase 16)": trained["full"]["launches"]}
+    flash_entry["launches"] = sum(flash_entry["launches_by_path"].values())
+    flash_entry["lse_max_abs_err"] = trained["lse"]["max_abs_err"]
+    flash_entry["training"] = {k: trained[k] for k in ("lse", "grad", "moe", "reduced", "full")}
     flash_entry["decode"] = decoded
     mttkrp_entry["sharded"] = {k: sharded[k] for k in (
         "fit_gaps", "table2_s", "engine_s", "table2", "timing", "peak_gb")}

@@ -31,10 +31,10 @@ The kernel's audit build counts the same census on the card.
 
 from __future__ import annotations
 
+from repro_torch.analysis import replay
 from repro_torch.analysis.census import census_drift
 from repro_torch.analysis.core import AnalysisContext, Checker, register
 from repro_torch.analysis.replay import (
-    REPLAY_NMODES,
     replay_suite,
     suite_line,
     suite_plan,
@@ -67,7 +67,8 @@ class TrafficModelDrift(Checker):
         by_mode = {m: [r for r in replays if r.split_mode == m] for m in ("rows", "tiles")}
         self.facts = {
             "file": sf.path,
-            "nmodes_checked": list(REPLAY_NMODES),
+            # read at the call, as replay_suite reads it, not bound at import
+            "nmodes_checked": list(replay.REPLAY_NMODES),
             "census_identities_verified": identities,
             "request_streams_verified": streams,
             "executed_traces_verified": traces,
@@ -90,7 +91,7 @@ class TrafficModelDrift(Checker):
         from repro_torch.reorder import ORDERINGS
 
         streams = traces = 0
-        for nmodes in REPLAY_NMODES:
+        for nmodes in replay.REPLAY_NMODES:
             tensor = suite_tensor(nmodes)
             rows_per_nnz = analytic_traffic_census(nmodes)["factor_rows_per_nnz"]
             for ordering in ORDERINGS:

@@ -25,6 +25,8 @@ __all__ = [
     "factors_from_numpy",
     "lm_params_from_numpy",
     "plan_from_numpy",
+    "train_state_from_numpy",
+    "tree_to_numpy",
 ]
 
 
@@ -84,8 +86,19 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
+def _split_layers(cfg: ModelConfig, tree: dict, tensor) -> dict:
+    """The JAX layout's stacked ``layers`` split into a list of per-layer dicts."""
+    ported = {k: _map_tree(tensor, v) for k, v in tree.items() if k != "layers"}
+    stacked = _map_tree(tensor, tree["layers"])
+    ported["layers"] = [
+        _map_tree(lambda t, i=i: t[i].clone(), stacked) for i in range(cfg.num_layers)
+    ]
+    return ported
+
+
 def lm_params_from_numpy(cfg: ModelConfig, params: dict, *, device) -> Transformer:
-    """A port ``Transformer`` holding the weights of a JAX ``init_model`` pytree.
+    """A port ``Transformer`` (dense or MoE) holding the weights of a JAX
+    ``init_model`` pytree.
 
     ``params`` has numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``)
     and the JAX layout: the layer stack carries a leading ``num_layers``
@@ -98,9 +111,44 @@ def lm_params_from_numpy(cfg: ModelConfig, params: dict, *, device) -> Transform
         arr = np.asarray(a, dtype=np.float32)
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=cfg.param_dtype)
 
-    ported = {k: _map_tree(tensor, v) for k, v in params.items() if k != "layers"}
-    stacked = _map_tree(tensor, params["layers"])
-    ported["layers"] = [
-        _map_tree(lambda t, i=i: t[i].clone(), stacked) for i in range(cfg.num_layers)
-    ]
-    return Transformer(cfg, ported)
+    return Transformer(cfg, _split_layers(cfg, params, tensor))
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: dict, *, device) -> dict:
+    """A port train state from a JAX one with numpy leaves: ``params`` becomes
+    a ``Transformer``; the params-shaped trees (AdamW's ``m`` and ``v``,
+    ``Int8ErrorFeedback``'s ``ef_buffer``) float32 trees with the layer
+    stack split; ``step``, ``lr`` and any other array a tensor, as stored."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in state.items():
+        if key == "params":
+            out[key] = lm_params_from_numpy(cfg, val, device=dev)
+        elif isinstance(val, dict):
+            out[key] = _split_layers(cfg, val, lambda a: torch.from_numpy(
+                np.array(a, dtype=np.float32)).to(dev))
+        else:
+            out[key] = torch.from_numpy(np.array(val)).to(dev)
+    return out
+
+
+def tree_to_numpy(tree):
+    """A port state, model or tree in the JAX layout with numpy leaves: a
+    ``Transformer`` as its ``params()``, each list of per-layer dicts stacked
+    on a leading axis."""
+    if isinstance(tree, Transformer):
+        return tree_to_numpy(tree.params())
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [tree_to_numpy(item) for item in tree]
+        return _map_stack(parts)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu").numpy()
+    return np.asarray(tree)
+
+
+def _map_stack(parts: list):
+    if isinstance(parts[0], dict):
+        return {k: _map_stack([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)

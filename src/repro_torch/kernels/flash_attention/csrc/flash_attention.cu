@@ -11,7 +11,10 @@
 // the TPU kernel: a running max m, a running sum l and the output accumulator
 // are carried in float32 over the key tiles, masked scores are -1e30 (so a
 // fully masked row never forms -inf - -inf), and the output is
-// acc / max(l, 1e-30), stored in q's dtype.
+// acc / max(l, 1e-30), stored in q's dtype.  When the caller passes an lse
+// buffer, each row's m + log(max(l, 1e-30)) (natural log, scaled scores) is
+// stored there too, float32 (B, H, S), for the recomputing backward; a null
+// lse stores nothing more than the output.
 //
 // Layout.  q and o are read and written as (B, S, H, D), k and v as
 // (B, S, KV, D), through element strides for batch, sequence and head (the
@@ -53,6 +56,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
@@ -60,6 +64,7 @@ struct Params {
     const void* k;
     const void* v;
     void* o;
+    float* lse;  // (B, H, S) row log-sum-exp of the scaled scores; null: not stored
     // Element strides for batch, sequence and head; the last dim is contiguous.
     long long q_sb, q_ss, q_sh;
     long long k_sb, k_ss, k_sh;
@@ -310,6 +315,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(const Params p)
     for (int i = 0; i < 2; ++i) {
         const int row = row0 + i * 8;
         if (row >= S) continue;
+        // m is in log2 units of the scaled scores: lse = m ln 2 + ln l.
+        if (p.lse != nullptr && (lane & 3) == 0)
+            p.lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
+                m[i] * LN2 + logf(denom[i]);
         bf16* orow = og + row * p.o_ss + (lane & 3) * 2;
 #pragma unroll
         for (int n = 0; n < NT_O; ++n) {
@@ -415,6 +424,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const Params p
         const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
         for (int i = 0; i < PER; ++i) orow[sub + 4 * i] = acc[i] / denom;
+        if (p.lse != nullptr && sub == 0)
+            p.lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] = m + logf(denom);
     }
 }
 
@@ -445,7 +456,9 @@ extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = queued).
 // strides: 12 element strides, (batch, sequence, head) for q, k, v and o.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+// lse: null, or a contiguous float32 (batch, num_heads, seq_len) output that
+// takes each row's log-sum-exp (natural log) of the D^-0.5-scaled scores.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                            const long long* strides, int batch, int seq_len, int num_heads,
                            int num_kv_heads, int head_dim, int causal, int is_bf16,
                            void* stream)
@@ -458,6 +471,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     p.k = k;
     p.v = v;
     p.o = o;
+    p.lse = static_cast<float*>(lse);
     p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
     p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
     p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];

@@ -15,6 +15,10 @@
 // before the second product (as the JAX blocked path rounds them), and the
 // output acc / max(l, 1e-30) stored in bf16.  q and o are (B, S, H, D), k and v
 // (B, S, KV, D), all read through strides (the last dimension contiguous).
+// When the caller passes an lse buffer, each row's log-sum-exp of the scaled
+// scores, m + log(max(l, 1e-30)) in natural-log units, is stored there as
+// float32 (B, H, S): the training path's recomputing backward reads it.  A null
+// lse stores nothing more than the output.
 //
 // What bounds it on the H100: operations.  A causal (b, h) needs
 // 4 * D * S(S+1)/2 flops; at the prefill's shape (B = 2, S = 32768, H = 16,
@@ -73,10 +77,12 @@ constexpr int BOX_COLS = 64;   // one 128-byte swizzle span of bf16
 constexpr int BLOCK_BYTES = 128 * BOX_COLS * 2;  // one box: 64 columns x 128 rows
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
     bf16* o;
+    float* lse;  // (B, H, S) row log-sum-exp of the scaled scores; null: not stored
     long long o_sb, o_ss, o_sh;  // element strides of o for batch, sequence and head
     int seq_len;
     int num_heads;
@@ -530,6 +536,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 2; ++r) {
             const int row = row0 + 8 * r;
             if (row >= S) continue;
+            // m is in log2 units of the scaled scores: lse = m ln 2 + ln l.
+            if (p.lse != nullptr && key_lane == 0)
+                p.lse[(static_cast<long long>(b) * p.num_heads + h) * S + row] =
+                    m[r] * LN2 + logf(denom[r]);
             bf16* orow = og + row * p.o_ss + key_lane;
 #pragma unroll
             for (int nb = 0; nb < D / 8; ++nb) {
@@ -610,7 +620,9 @@ extern "C" {
 // Launches on `stream`; returns 0 when queued, a cudaError_t, or
 // -1000 - CUresult when a tensor map could not be encoded.
 // strides: 12 element strides, (batch, sequence, head) for q, k, v and o.
-int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o,
+// lse: null, or a contiguous float32 (batch, num_heads, seq_len) output that
+// takes each row's log-sum-exp (natural log) of the D^-0.5-scaled scores.
+int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                 const long long* strides, int batch, int seq_len, int num_heads,
                                 int num_kv_heads, int head_dim, int causal, void* stream)
 {
@@ -636,6 +648,7 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v, voi
 
     Params p;
     p.o = static_cast<bf16*>(o);
+    p.lse = static_cast<float*>(lse);
     p.o_sb = strides[9];
     p.o_ss = strides[10];
     p.o_sh = strides[11];

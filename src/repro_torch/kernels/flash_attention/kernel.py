@@ -20,6 +20,10 @@ What bounds the bf16 kernels on the H100 is operations, not bytes: a causal
 ``(b, h)`` needs ``4 * D * S(S+1)/2`` flops against ``8 * S * D`` bytes of
 q, k, v and o.  Scores never leave registers (see the sources' notes).
 
+Each kernel stores each row's log-sum-exp beside the output when the
+caller asks for it (``return_lse``), for the recomputing backward of
+``models.attention.blocked_attention``; otherwise it stores nothing more.
+
 ``flash_attention_cuda.launches`` counts the kernel launches of this
 process, and ``flash_attention_cuda.launches_by_variant`` counts them per
 variant.
@@ -105,7 +109,7 @@ def _library(variant: str) -> tuple[ctypes.CDLL, str]:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         flags = [i] if name == "flash_attention" else []
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, *flags, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, *flags, p]
         fn.restype = ctypes.c_int
         err_string = getattr(lib, f"{name}_error_string")
         err_string.argtypes = [ctypes.c_int]
@@ -113,8 +117,10 @@ def _library(variant: str) -> tuple[ctypes.CDLL, str]:
     return lib, name
 
 
-def _launch(q, k, v, out, *, causal: bool, variant: str) -> None:
-    """Call the variant's C entry point; raise if the launch is refused."""
+def _launch(q, k, v, out, *, causal: bool, variant: str, lse: torch.Tensor | None = None) -> None:
+    """Call the variant's C entry point; raise if the launch is refused.
+    ``lse``, if given, is a contiguous float32 ``(B, H, S)`` tensor that takes
+    each row's log-sum-exp."""
     b, s, h, d = q.shape
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
@@ -124,7 +130,7 @@ def _launch(q, k, v, out, *, causal: bool, variant: str) -> None:
     with torch.cuda.device(q.device):
         err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ctypes.cast(strides, ctypes.c_void_p), b, s, h, k.shape[2], d, int(causal), *flags,
+            None if lse is None else lse.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, s, h, k.shape[2], d, int(causal), *flags,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -140,8 +146,13 @@ def flash_attention_cuda(
     *,
     causal: bool = True,
     variant: str | None = None,
-) -> torch.Tensor:
-    """Launch a kernel; returns a contiguous ``(B, S, H, D)`` tensor in q's dtype.
+    return_lse: bool = False,
+):
+    """Launch a kernel; returns a contiguous ``(B, S, H, D)`` tensor in q's dtype,
+    and with ``return_lse`` also each row's log-sum-exp of the ``D^-0.5``-scaled
+    scores, ``m + log(max(l, 1e-30))``, as a contiguous float32 ``(B, H, S)``
+    tensor (the kernel stores it beside the output; without ``return_lse`` it
+    stores nothing more).
 
     q is ``(B, S, H, D)``, k and v ``(B, S, KV, D)``, all float32 or all
     bfloat16 on one CUDA device, with a contiguous last dimension, the
@@ -149,8 +160,8 @@ def flash_attention_cuda(
     kernel is ``variant_for(dtype, D)``; ``variant="mma"`` asks for the
     ``mma.sync`` kernel at any bf16 head dim instead (to hold it against
     the wgmma one).  It runs on the current stream and is not synchronised.
-    There is no backward: inputs that require grad under grad mode are
-    refused.
+    The call has no backward: inputs that require grad under grad mode are
+    refused; the differentiable path is ``models.attention.blocked_attention``.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -180,14 +191,16 @@ def flash_attention_cuda(
                 f"{name}: strides {t.stride()} and data pointer must be 16-byte aligned"
             )
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the flash-attention kernel has no backward yet")
+        raise NotImplementedError(
+            "flash_attention_cuda has no backward: differentiate through "
+            "repro_torch.models.attention.blocked_attention")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    _launch(q, k, v, out, causal=causal, variant=variant)
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.launches_by_variant[variant] += 1
-    return out
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+    if out.numel() != 0:
+        _launch(q, k, v, out, causal=causal, variant=variant, lse=lse)
+        flash_attention_cuda.launches += 1
+        flash_attention_cuda.launches_by_variant[variant] += 1
+    return (out, lse) if return_lse else out
 
 
 def reset_launch_counts() -> None:

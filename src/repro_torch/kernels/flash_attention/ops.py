@@ -2,7 +2,8 @@
 
 ``flash_attention(q, k, v, causal=...)`` takes the JAX wrapper's layout,
 q ``(B, S, H, D)`` and k/v ``(B, S, KV, D)``, and returns ``(B, S, H, D)`` in
-q's dtype.  CUDA tensors launch a hand-written kernel (``kernel.py``),
+q's dtype, with ``return_lse`` also the float32 ``(B, H, S)`` row
+log-sum-exp.  CUDA tensors launch a hand-written kernel (``kernel.py``),
 which reads the layout through strides, indexes KV heads for grouped-query
 attention and masks the ragged sequence tail itself; it raises on anything
 it does not take.  CPU tensors run the plain version (``ref.py``) after the
@@ -30,8 +31,10 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     q_chunk: int | None = None,
-) -> torch.Tensor:
-    """The plain version over the model's layout, on any device."""
+    return_lse: bool = False,
+):
+    """The plain version over the model's layout, on any device; with
+    ``return_lse`` also the float32 ``(B, H, S)`` row log-sum-exp."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     if kvh != h:
@@ -40,17 +43,23 @@ def flash_attention_plain(
     qf = q.transpose(1, 2).reshape(b * h, s, d)
     kf = k.transpose(1, 2).reshape(b * h, s, d)
     vf = v.transpose(1, 2).reshape(b * h, s, d)
-    out = attention_ref(qf, kf, vf, causal=causal, q_chunk=q_chunk)
-    return out.reshape(b, h, s, d).transpose(1, 2).contiguous()
+    out = attention_ref(qf, kf, vf, causal=causal, q_chunk=q_chunk, return_lse=return_lse)
+    if return_lse:
+        out, lse = out
+    out = out.reshape(b, h, s, d).transpose(1, 2).contiguous()
+    return (out, lse.reshape(b, h, s)) if return_lse else out
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
-) -> torch.Tensor:
-    """Attention forward; ``(B, S, H, D)`` x ``(B, S, KV, D)`` -> ``(B, S, H, D)``."""
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    return_lse: bool = False,
+):
+    """Attention forward; ``(B, S, H, D)`` x ``(B, S, KV, D)`` -> ``(B, S, H, D)``,
+    and with ``return_lse`` the float32 ``(B, H, S)`` row log-sum-exp of the
+    scaled scores (natural log), which the recomputing backward reads."""
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
     check_inputs(q, k, v)
-    return flash_attention_plain(q, k, v, causal=causal)
+    return flash_attention_plain(q, k, v, causal=causal, return_lse=return_lse)

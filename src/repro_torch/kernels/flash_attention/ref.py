@@ -23,8 +23,11 @@ def attention_ref(
     *,
     causal: bool = True,
     q_chunk: int | None = None,
-) -> torch.Tensor:
-    """q/k/v: (BH, S, D) -> (BH, S, D) in q's dtype, with a float32 softmax."""
+    return_lse: bool = False,
+):
+    """q/k/v: (BH, S, D) -> (BH, S, D) in q's dtype, with a float32 softmax.
+    With ``return_lse`` also each row's float32 log-sum-exp of the scaled,
+    masked scores, (BH, S)."""
     bh, s, d = q.shape
     skv = k.shape[1]
     chunk = s if q_chunk is None else q_chunk
@@ -34,6 +37,7 @@ def attention_ref(
     vf = v.float()
     kpos = torch.arange(skv, device=q.device)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device) if return_lse else None
     for i0 in range(0, s, chunk):
         i1 = min(s, i0 + chunk)
         scores = torch.bmm(q[:, i0:i1].float(), kt) * d**-0.5
@@ -41,7 +45,9 @@ def attention_ref(
             qpos = torch.arange(i0, i1, device=q.device)
             scores.masked_fill_(qpos[:, None] < kpos[None, :], NEG_INF)
         out[:, i0:i1] = torch.bmm(torch.softmax(scores, dim=-1), vf).to(q.dtype)
-    return out
+        if return_lse:
+            lse[:, i0:i1] = torch.logsumexp(scores, dim=-1)
+    return (out, lse) if return_lse else out
 
 
 def max_row_error(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -4,20 +4,27 @@
 ``attention(params, cfg, x, impl=...)`` keeps the JAX package's rule:
 ``"auto"`` takes the blocked path above 2048 tokens and the dense path
 below.  The dense path materialises the scores in plain torch, as XLA
-computed them.  The blocked path calls ``ops.flash_attention``: on CUDA
-tensors that launches the hand-written flash-attention kernel, on CPU
-tensors its plain version.  This is the one place where the port's wiring
-departs from the JAX package's, whose blocked path is a ``lax.scan`` over
-the same online-softmax schedule as its Pallas kernel; the tests hold the
-port against both.
+computed them, and takes its gradients from autograd, as JAX's does.  The
+blocked path calls ``ops.flash_attention``: on CUDA tensors that launches
+the hand-written flash-attention kernel, on CPU tensors its plain version.
+This is where the port's wiring departs from the JAX package's, whose
+blocked forward is a ``lax`` loop over the same online-softmax schedule as
+its Pallas kernel; the tests hold the port against both.
+
+When gradients are needed, the blocked path is ``_BlockedAttention``, the
+port of JAX's ``_blocked_attention`` custom VJP: the forward asks the kernel
+for each row's log-sum-exp beside the output and saves only
+``(q, k, v, out, lse)``; the backward recomputes each
+``(block_q, block_kv)`` score block from them in plain PyTorch, a dq pass
+and a dk/dv pass as in JAX (whose backward is plain ``jnp`` too), so no
+``S x S`` matrix is ever held.
 
 ``decode_attention`` is one token per sequence against a KV cache, each
 sequence at its own position (continuous batching); it is a plain
 PyTorch product, as JAX's is plain ``jnp``, and reaches no kernel.
 
-Not ported: the custom-VJP backward (ROADMAP.md Queue 1 item 3) and
-``decode_attention(lse_partial=True)``, whose one caller is the sharded
-decode (item 10).
+Not ported: ``decode_attention(lse_partial=True)``, whose one caller is the
+sharded decode (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -26,12 +33,13 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, frozen, normal, rope_frequencies
+from repro_torch.models.layers import apply_rope, normal, rope_frequencies
 
 __all__ = [
     "Attention",
     "NEG_INF",
     "attention",
+    "blocked_attention",
     "compute_kv",
     "decode_attention",
     "init_attention",
@@ -105,10 +113,117 @@ def _dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _block_scores(qb, kb, q0: int, k0: int, causal: bool, scale: float) -> torch.Tensor:
+    """float32 scaled scores of one (query block, key block) pair, (b, h, q, t),
+    with keys above the causal diagonal at ``NEG_INF``."""
+    sc = torch.matmul(qb, kb.transpose(-1, -2)).float() * scale
+    if causal and k0 + kb.shape[2] - 1 > q0:
+        qpos = torch.arange(q0, q0 + qb.shape[2], device=qb.device)
+        kpos = torch.arange(k0, k0 + kb.shape[2], device=qb.device)
+        sc = sc.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+    return sc
+
+
+def _blocked_backward(q, k, v, out, lse, dout, *, causal: bool, block_q: int, block_kv: int):
+    """dq, dk, dv of attention from the saved forward: JAX's recomputing
+    backward (``_blocked_attention_bwd``) in plain PyTorch.
+
+    q, out, dout (B, S, H, D); k, v (B, Skv, KV, D); lse (B, H, S) float32.
+    Products take the inputs' dtype (probabilities and ``ds`` are rounded to
+    it, as in JAX), accumulators are float32.  Key blocks wholly above the
+    causal diagonal are skipped: there ``p = exp(NEG_INF - lse)`` is exactly
+    0, so they add nothing.
+    """
+    b, s, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    bq, bkv = min(block_q, s), min(block_kv, skv)
+    scale = d**-0.5
+    dt = q.dtype
+    qh = q.transpose(1, 2).contiguous()  # (b, h, s, d)
+    kh = _repeat_kv(k, h).transpose(1, 2).contiguous()
+    vh = _repeat_kv(v, h).transpose(1, 2).contiguous()
+    doh = dout.to(dt).transpose(1, 2).contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # rowsum(dout * out): (b, h, s)
+    lse = lse.float()
+    q_blocks = [(q0, min(s, q0 + bq)) for q0 in range(0, s, bq)]
+    kv_blocks = [(k0, min(skv, k0 + bkv)) for k0 in range(0, skv, bkv)]
+
+    def probs(q0, q1, k0, k1):
+        sc = _block_scores(qh[:, :, q0:q1], kh[:, :, k0:k1], q0, k0, causal, scale)
+        return torch.exp(sc - lse[:, :, q0:q1, None])
+
+    def needed(q1, k0):
+        return not (causal and k0 > q1 - 1)
+
+    dq = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    for q0, q1 in q_blocks:  # dq: q blocks outside, key blocks inside (the forward's order)
+        acc = torch.zeros((b, h, q1 - q0, d), dtype=torch.float32, device=q.device)
+        for k0, k1 in kv_blocks:
+            if not needed(q1, k0):
+                continue
+            p = probs(q0, q1, k0, k1)
+            dp = torch.matmul(doh[:, :, q0:q1], vh[:, :, k0:k1].transpose(-1, -2)).float()
+            ds = p * (dp - delta[:, :, q0:q1, None]) * scale
+            acc += torch.matmul(ds.to(dt), kh[:, :, k0:k1]).float()
+        dq[:, :, q0:q1] = acc
+
+    dk = torch.empty((b, h, skv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for k0, k1 in kv_blocks:  # dk, dv: key blocks outside, q blocks inside
+        dk_acc = torch.zeros((b, h, k1 - k0, d), dtype=torch.float32, device=q.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for q0, q1 in q_blocks:
+            if not needed(q1, k0):
+                continue
+            p = probs(q0, q1, k0, k1)
+            dv_acc += torch.matmul(p.to(dt).transpose(-1, -2), doh[:, :, q0:q1]).float()
+            dp = torch.matmul(doh[:, :, q0:q1], vh[:, :, k0:k1].transpose(-1, -2)).float()
+            ds = p * (dp - delta[:, :, q0:q1, None]) * scale
+            dk_acc += torch.matmul(ds.to(dt).transpose(-1, -2), qh[:, :, q0:q1]).float()
+        dk[:, :, k0:k1] = dk_acc
+        dv[:, :, k0:k1] = dv_acc
+    # fold the repeated heads back onto their KV heads
+    dk = dk.view(b, kvh, h // kvh, skv, d).sum(2).transpose(1, 2).to(k.dtype)
+    dv = dv.view(b, kvh, h // kvh, skv, d).sum(2).transpose(1, 2).to(v.dtype)
+    return dq.transpose(1, 2).to(dt), dk, dv
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """Flash attention forward with a recomputing backward (JAX's
+    ``_blocked_attention`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: int, block_kv: int):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.config = (causal, block_q, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, block_q, block_kv = ctx.config
+        dq, dk, dv = _blocked_backward(*ctx.saved_tensors, dout, causal=causal,
+                                       block_q=block_q, block_kv=block_kv)
+        return dq, dk, dv, None, None, None
+
+
+def blocked_attention(q, k, v, causal: bool, block_q: int, block_kv: int) -> torch.Tensor:
+    """Flash attention, differentiable.  q (B, S, H, D), k and v (B, S, KV, D).
+
+    Without a gradient to take (inference mode, or no input that requires
+    grad) it is ``ops.flash_attention`` itself, so the prefill's launches
+    store no log-sum-exp.  Otherwise ``_BlockedAttention``, whose backward
+    recomputes ``(block_q, block_kv)`` score blocks.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _BlockedAttention.apply(q, k, v, causal, block_q, block_kv)
+    return flash_attention(q, k, v, causal=causal)
+
+
 def attention(params, cfg, x: torch.Tensor, *, causal: bool = True,
               impl: str | None = None) -> torch.Tensor:
-    """Full-sequence attention (prefill).  x: (B, S, d_model) -> (B, S, d_model);
-    the caller adds the residual."""
+    """Full-sequence attention (train / prefill).  x: (B, S, d_model) ->
+    (B, S, d_model); the caller adds the residual."""
     q, k, v = project_qkv(params, cfg, x)
     impl = impl or cfg.attention_impl
     if impl == "auto":
@@ -116,7 +231,7 @@ def attention(params, cfg, x: torch.Tensor, *, causal: bool = True,
     if impl == "dense":
         out = _dense_attention(q, k, v, causal=causal)
     elif impl == "blocked":
-        out = flash_attention(q, k, v, causal=causal)
+        out = blocked_attention(q, k, v, causal, cfg.attention_block_q, cfg.attention_block_kv)
     else:
         raise ValueError(f"attention impl {impl!r}: use 'auto', 'dense' or 'blocked'")
     return _out_proj(params, out)
@@ -185,7 +300,7 @@ class Attention(nn.Module):
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
         for name in ("wq", "wk", "wv", "wo"):
-            setattr(self, name, frozen(params[name]))
+            setattr(self, name, nn.Parameter(params[name]))
 
     def params(self) -> dict[str, torch.Tensor]:
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}

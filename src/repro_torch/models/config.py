@@ -3,8 +3,8 @@
 The same fields, defaults and derived properties as the JAX package's
 ``ModelConfig``, with torch dtypes: ``dtype=torch.bfloat16`` (compute) and
 ``param_dtype=torch.float32`` (master weights).  ``attention_block_q`` and
-``attention_block_kv`` are kept so configs compare field for field; the
-port's attention kernel picks its own tiles and does not read them.
+``attention_block_kv`` are the blocks of the blocked attention's
+recomputing backward, as in JAX; the forward kernel picks its own tiles.
 """
 
 from __future__ import annotations

@@ -8,9 +8,14 @@ at use, as in JAX.  Random draws take an explicit ``torch.Generator``;
 they are not JAX's threefry numbers, so tests carry JAX weights over with
 ``repro_torch.convert.lm_params_from_numpy``.
 
-Not ported here: ``shard_hint`` / ``head_shard`` (sharding) and
-``grad_fence_bf16`` (a training-only cotangent cast; the identity in the
-forward pass).
+The modules' parameters take gradients (the training path,
+``model_zoo.make_train_step``); prefill and decode run under
+``torch.inference_mode`` and build no graph.  ``grad_fence_bf16`` is the
+identity whose backward rounds the cotangent to bf16, as JAX's custom VJP
+does at every layer boundary.
+
+Not ported here: ``shard_hint`` / ``head_shard`` (sharding; no-ops outside
+a mesh).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ __all__ = [
     "RMSNorm",
     "SwiGLU",
     "apply_rope",
-    "frozen",
+    "grad_fence_bf16",
     "init_dense",
     "init_embedding",
     "init_swiglu",
@@ -33,9 +38,20 @@ __all__ = [
 ]
 
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter that takes no gradient: the port has only forward passes."""
-    return nn.Parameter(t, requires_grad=False)
+class _GradFenceBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def grad_fence_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward casts the cotangent to bf16 and back (JAX's
+    ``grad_fence_bf16``): parameter gradients still accumulate in float32."""
+    return _GradFenceBf16.apply(x)
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -98,10 +114,13 @@ class RMSNorm(nn.Module):
 
     def __init__(self, weight: torch.Tensor):
         super().__init__()
-        self.weight = frozen(weight)
+        self.weight = nn.Parameter(weight)
 
     def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         return rms_norm(x, self.weight, eps)
+
+    def params(self) -> torch.Tensor:
+        return self.weight
 
 
 class SwiGLU(nn.Module):
@@ -109,9 +128,12 @@ class SwiGLU(nn.Module):
 
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
-        self.w_gate = frozen(params["w_gate"])
-        self.w_up = frozen(params["w_up"])
-        self.w_down = frozen(params["w_down"])
+        self.w_gate = nn.Parameter(params["w_gate"])
+        self.w_up = nn.Parameter(params["w_up"])
+        self.w_down = nn.Parameter(params["w_down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu({"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}, x)
+        return swiglu(self.params(), x)
+
+    def params(self) -> dict[str, torch.Tensor]:
+        return {"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}

@@ -1,12 +1,14 @@
 """Model zoo front end: step functions per architecture (port of
-``repro.models.model_zoo``; the prefill and decode steps).
+``repro.models.model_zoo``: the loss, train, prefill and decode steps).
 
-Not in this slice (ROADMAP.md, Queue 1): ``make_loss_fn``/``make_train_step``
-(item 3) and ``input_specs``.
+Not in this slice (ROADMAP.md, Queue 1 item 10): ``input_specs``.  JAX's
+``_ubatch_constraint`` is a sharding hint, a no-op outside a mesh, and is
+not ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -14,13 +16,111 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     Transformer,
     check_supported,
+    cross_entropy_loss,
     decode_step,
     forward,
+    forward_params,
     init_decode_state,
     init_model,
 )
+from repro_torch.tree import param_tree, tree_leaves, tree_map
 
-__all__ = ["init_decode_state", "init_model", "make_decode_fn", "make_prefill_fn"]
+__all__ = ["init_decode_state", "init_model", "make_decode_fn", "make_loss_fn",
+           "make_prefill_fn", "make_train_step"]
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """``loss_fn(params, batch) -> float32 loss``: ``cross_entropy_loss`` of
+    the logits against ``batch["labels"]``; ``params`` is a model or a tree."""
+    def loss_fn(params, batch):
+        logits = forward_params(param_tree(params), cfg, batch)
+        return cross_entropy_loss(logits, batch["labels"])
+
+    return loss_fn
+
+
+def _on_device(batch: dict, dev: torch.device) -> dict:
+    return {k: (torch.from_numpy(np.asarray(v)) if not isinstance(v, torch.Tensor) else v).to(dev)
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int = 1,
+                    cast_params_bf16: bool = True, device="cuda"):
+    """``(state, batch) -> (state, metrics)``; ``state`` is an optimiser state
+    (``optim.adamw.init_adamw_state``) whose ``params`` is a ``Transformer``
+    (or a tree of tensors) on ``device`` (default the GPU; raises without
+    one, and when the weights lie elsewhere).
+
+    As in JAX: with ``num_microbatches`` > 1 the batch is split along its
+    first axis, float32 gradients are summed over the microbatches and their
+    mean taken, with the mean loss; ``cast_params_bf16`` casts tensors of 2
+    or more dimensions to ``cfg.dtype`` once per step, before the
+    microbatches, and the gradients are taken against those cast tensors
+    (the gradient through the cast to the float32 master has the same
+    values); with ``optimizer=None`` the update is SGD at ``state["lr"]``
+    (default 1e-3); ``optimizer.compressor`` compresses the gradients first.
+
+    The update is made in place, into the state's tensors, and the same
+    state dict is returned.  It starts only after every gradient has been
+    computed, and a non-finite loss raises ``FloatingPointError`` before it
+    (one host sync a step), so a step that raises leaves the state as it was
+    and can be replayed.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    loss_fn = make_loss_fn(cfg)
+    if num_microbatches < 1:
+        raise ValueError(f"num_microbatches={num_microbatches} must be >= 1")
+
+    def leaf(p: torch.Tensor) -> torch.Tensor:
+        if cast_params_bf16 and p.dim() >= 2:
+            p = p.to(cfg.dtype)
+        return p.detach().requires_grad_()
+
+    def grads_of(tree: dict, batch: dict):
+        tree = tree_map(leaf, tree)
+        leaves = tree_leaves(tree)
+        if num_microbatches == 1:
+            loss = loss_fn(tree, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), grads
+        n = num_microbatches
+        for k, v in batch.items():
+            if v.shape[0] % n:
+                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a multiple of {n}")
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in leaves]
+        for i in range(n):
+            mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i] for k, v in batch.items()}
+            loss = loss_fn(tree, mb)
+            for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+                a += g.float()
+            loss_sum += loss.detach()
+        inv = 1.0 / n
+        return loss_sum * inv, [a.mul_(inv) for a in acc]
+
+    def train_step(state: dict, batch: dict):
+        tree = param_tree(state["params"])
+        where = tree_leaves(tree)[0].device
+        if where != dev:
+            raise ValueError(f"model weights are on {where}, the train step runs on {dev}")
+        loss, grads = grads_of(tree, _on_device(batch, dev))
+        if not bool(torch.isfinite(loss)):
+            raise FloatingPointError(f"non-finite loss {float(loss)}")
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), tree)
+        if optimizer is None:
+            lr = state.get("lr", 1e-3)
+            with torch.no_grad():
+                for p, g in zip(tree_leaves(tree), tree_leaves(grads)):
+                    p.sub_(lr * g.to(p.dtype))
+            return state, {"loss": loss}
+        if optimizer.compressor is not None:
+            grads, state = optimizer.compressor.compress_tree(grads, state)
+        state, metrics = optimizer.apply_gradients(state, grads)
+        return state, dict(metrics, loss=loss)
+
+    return train_step
 
 
 def make_prefill_fn(cfg: ModelConfig, *, device="cuda"):

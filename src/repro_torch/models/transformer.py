@@ -1,21 +1,25 @@
-"""Dense decoder-only transformer: init, full-sequence forward and cached
-decode (port of ``repro.models.transformer`` for the dense family).
+"""Decoder-only transformer, dense and MoE: init, full-sequence forward, loss
+and cached decode (port of ``repro.models.transformer`` for those families).
 
   init_model(cfg, seed=..., device=...)  -> Transformer (float32 master weights)
   forward(model, cfg, batch)             -> logits (B, S, padded_vocab) in cfg.dtype
+  forward_params(params, cfg, batch)     -> the same over a parameter tree
+  cross_entropy_loss(logits, labels)     -> mean next-token CE + z-loss, float32
   init_decode_state(cfg, B, max_seq)     -> {"pos", "k", "v"} decode state
   decode_step(model, cfg, tokens, state) -> logits (B, padded_vocab) float32; the
                                             state is updated in place
 
 The JAX package scans one layer body over stacked parameters; here the
-stack is a Python loop over per-layer modules.  Weights stay in
-``cfg.param_dtype`` and are cast to ``cfg.dtype`` at use, as in JAX.
-Parameters take no gradient: the port has no backward yet.
+stack is a Python loop over per-layer modules, and ``Transformer.params()``
+is the JAX pytree with the layer stack as a list.  Weights stay in
+``cfg.param_dtype`` and are cast to ``cfg.dtype`` at use, as in JAX.  Each
+layer body ends in ``grad_fence_bf16`` and, when gradients are taken, runs
+under ``cfg.remat_policy`` (``torch.utils.checkpoint``, as JAX wraps it in
+``jax.checkpoint``).
 
-Not in this slice (ROADMAP.md, Queue 1): the MoE family (item 2),
-training (``cross_entropy_loss``, item 3), and the RWKV, hybrid,
-encoder-decoder and frontend families (item 10).  Each raises
-``NotImplementedError`` through ``check_supported``.
+Not in this slice (ROADMAP.md, Queue 1 item 10): the RWKV, hybrid,
+encoder-decoder and frontend families.  Each raises ``NotImplementedError``
+through ``check_supported``.
 """
 
 from __future__ import annotations
@@ -23,18 +27,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, attention, decode_attention, init_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, SwiGLU, frozen, init_embedding, init_swiglu
+from repro_torch.models.layers import (
+    RMSNorm,
+    SwiGLU,
+    grad_fence_bf16,
+    init_embedding,
+    init_swiglu,
+    rms_norm,
+    swiglu,
+)
+from repro_torch.models.moe import MoE, init_moe, moe_layer
 
 __all__ = [
     "DenseLayer",
     "Transformer",
     "check_supported",
+    "cross_entropy_loss",
     "decode_step",
     "forward",
+    "forward_params",
     "init_decode_state",
     "init_model",
 ]
@@ -43,9 +59,7 @@ __all__ = [
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families this slice does not port, naming their ROADMAP.md item."""
     missing = None
-    if cfg.is_moe:
-        missing = "the MoE family (models/moe.py): ROADMAP.md Queue 1 item 2"
-    elif cfg.rwkv or cfg.family == "ssm":
+    if cfg.rwkv or cfg.family == "ssm":
         missing = "the RWKV family (models/rwkv.py): ROADMAP.md Queue 1 item 10"
     elif cfg.family == "hybrid":
         missing = "the hybrid family (models/ssm.py): ROADMAP.md Queue 1 item 10"
@@ -58,33 +72,45 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class DenseLayer(nn.Module):
-    """``ln1``, ``attn``, ``ln2``, ``ffn``: pre-norm attention and SwiGLU blocks."""
+    """``ln1``, ``attn``, ``ln2``, ``ffn``: pre-norm attention, then SwiGLU
+    or, in the MoE family (``ffn`` holds a ``router``), the MoE layer."""
 
     def __init__(self, params: dict):
         super().__init__()
         self.ln1 = RMSNorm(params["ln1"])
         self.ln2 = RMSNorm(params["ln2"])
         self.attn = Attention(params["attn"])
-        self.ffn = SwiGLU(params["ffn"])
+        self.ffn = MoE(params["ffn"]) if "router" in params["ffn"] else SwiGLU(params["ffn"])
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        x = x + attention(self.attn.params(), cfg, self.ln1(x, cfg.norm_eps))
-        return x + self.ffn(self.ln2(x, cfg.norm_eps))
+    def params(self) -> dict:
+        return {"ln1": self.ln1.weight, "ln2": self.ln2.weight, "attn": self.attn.params(),
+                "ffn": self.ffn.params()}
 
 
 class Transformer(nn.Module):
-    """Weights of a dense model, named as the JAX pytree's keys:
-    ``embed`` (padded_vocab, d), ``layers[i]``, ``final_ln``, ``lm_head``."""
+    """Weights of a dense or MoE model, named as the JAX pytree's keys:
+    ``embed`` (padded_vocab, d), ``layers[i]``, ``final_ln``, ``lm_head``.
+    ``cfg`` is the config it was built for."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         check_supported(cfg)
         if len(params["layers"]) != cfg.num_layers:
             raise ValueError(f"{len(params['layers'])} layers, config has {cfg.num_layers}")
-        self.embed = frozen(params["embed"]["emb"])
+        self.cfg = cfg
+        self.embed = nn.Parameter(params["embed"]["emb"])
         self.final_ln = RMSNorm(params["final_ln"])
         self.layers = nn.ModuleList(DenseLayer(lp) for lp in params["layers"])
-        self.lm_head = None if cfg.tie_embeddings else frozen(params["lm_head"]["emb"])
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(params["lm_head"]["emb"])
+
+    def params(self) -> dict:
+        """The JAX pytree of this model's parameters (the tensors themselves),
+        with ``layers`` a list of per-layer dicts."""
+        tree = {"embed": {"emb": self.embed}, "final_ln": self.final_ln.weight,
+                "layers": [layer.params() for layer in self.layers]}
+        if self.lm_head is not None:
+            tree["lm_head"] = {"emb": self.lm_head}
+        return tree
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -94,7 +120,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "ln1": ones,
         "ln2": ones.clone(),
         "attn": init_attention(gen, cfg),
-        "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype=pd),
+        "ffn": (init_moe(gen, cfg) if cfg.is_moe
+                else init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype=pd)),
     }
 
 
@@ -118,6 +145,67 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Transformer
     return Transformer(cfg, params)
 
 
+def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return moe_layer(lp, cfg, h) if cfg.is_moe else swiglu(lp, h)
+
+
+def layer_body(lp: dict, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True):
+    """One layer over a full sequence (JAX's ``_dense_layer_seq``)."""
+    x = x + attention(lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), causal=causal)
+    x = x + _ffn(lp["ffn"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return grad_fence_bf16(x)
+
+
+# Selective checkpointing for remat "dots": keep the outputs of 2-D matrix
+# products (projections by a weight, JAX's dots with no batch dimensions),
+# recompute everything else.
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots():
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _run_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """``layer_body`` under ``cfg.remat_policy`` when a gradient is being
+    taken: "full" saves the layer's input and recomputes the rest in the
+    backward (the flash kernel is launched again there), "dots" saves the
+    2-D matrix products' outputs too, "none" saves what autograd saves."""
+    policy = cfg.remat_policy
+    if not torch.is_grad_enabled() or policy == "none":
+        return layer_body(lp, cfg, x)
+    if policy == "full":
+        return checkpoint(layer_body, lp, cfg, x, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(layer_body, lp, cfg, x, use_reentrant=False, context_fn=_save_dots)
+    raise ValueError(f"remat_policy {policy!r}: use 'full', 'dots' or 'none'")
+
+
+def _as_tokens(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, np.ndarray):
+        tokens = torch.from_numpy(tokens)
+    return tokens.to(device=device, dtype=torch.long)
+
+
+def forward_params(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Logits over a parameter tree (``Transformer.params()``'s structure,
+    any dtypes).  ``batch["tokens"]``: (B, S) integer ids (tensor or numpy)."""
+    check_supported(cfg)
+    emb = params["embed"]["emb"]
+    x = emb[_as_tokens(batch["tokens"], emb.device)].to(cfg.dtype)
+    for lp in params["layers"]:
+        x = _run_layer(lp, cfg, x)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    head = emb if cfg.tie_embeddings else params["lm_head"]["emb"]
+    logits = x @ head.to(x.dtype).T
+    return _mask_padded_vocab(logits, cfg)
+
+
 def _mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Subtract 1e9 from the padded vocabulary's logits, in place: JAX writes a
     masked copy (12 GB at B=2, S=32768); the values are the same, since the
@@ -127,19 +215,23 @@ def _mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Logits for prefill.  ``batch["tokens"]``: (B, S) integer ids (tensor or numpy)."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    if isinstance(tokens, np.ndarray):
-        tokens = torch.from_numpy(tokens)
-    tokens = tokens.to(device=model.embed.device, dtype=torch.long)
-    x = model.embed[tokens].to(cfg.dtype)
-    for layer in model.layers:
-        x = layer(x, cfg)
-    x = model.final_ln(x, cfg.norm_eps)
-    head = model.embed if cfg.tie_embeddings else model.lm_head
-    logits = x @ head.to(x.dtype).T
-    return _mask_padded_vocab(logits, cfg)
+    """Logits for train and prefill.  ``batch["tokens"]``: (B, S) integer ids
+    (tensor or numpy)."""
+    return forward_params(model.params(), cfg, batch)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels, *, z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token cross-entropy with z-loss, in float32; labels of -100
+    (any negative label) are ignored."""
+    if isinstance(labels, np.ndarray):
+        labels = torch.from_numpy(labels)
+    labels = labels.to(device=logits.device, dtype=torch.long)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    picked = logits.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    total = torch.where(valid, lse - picked + z_loss * lse.square(), 0.0).sum()
+    return total / valid.sum().clamp_min(1)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -164,16 +256,15 @@ def decode_step(model: Transformer, cfg: ModelConfig, tokens, state: dict):
     advances by one.  The caller's state dict is the one returned.
     """
     check_supported(cfg)
-    if isinstance(tokens, np.ndarray):
-        tokens = torch.from_numpy(tokens)
-    tokens = tokens.to(device=model.embed.device, dtype=torch.long)
+    tokens = _as_tokens(tokens, model.embed.device)
     pos = state["pos"]
     x = model.embed[tokens][:, None].to(cfg.dtype)
     for layer, cache_k, cache_v in zip(model.layers, state["k"], state["v"]):
-        h = layer.ln1(x, cfg.norm_eps)
-        out, _, _ = decode_attention(layer.attn.params(), cfg, h, cache_k, cache_v, pos)
+        lp = layer.params()
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        out, _, _ = decode_attention(lp["attn"], cfg, h, cache_k, cache_v, pos)
         x = x + out
-        x = x + layer.ffn(layer.ln2(x, cfg.norm_eps))
+        x = x + _ffn(lp["ffn"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
     state["pos"] += 1
     x = model.final_ln(x, cfg.norm_eps)
     head = model.embed if cfg.tie_embeddings else model.lm_head

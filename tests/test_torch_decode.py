@@ -170,7 +170,7 @@ def test_decode_matches_forward_teacher_forced():
     holds JAX's (float32, 3e-2)."""
     _, tcfg, _, model = _models()
     toks = np.random.default_rng(2).integers(0, tcfg.vocab_size, (1, 6), dtype=np.int64)
-    full = ttr.forward(model, tcfg, {"tokens": toks})
+    full = ttr.forward(model, tcfg, {"tokens": toks}).detach()
     state = ttr.init_decode_state(tcfg, 1, 8, cache_dtype=torch.float32, device="cpu")
     decode = tzoo.make_decode_fn(tcfg, device="cpu")
     outs = [decode(model, toks[:, t], state)[0] for t in range(6)]
@@ -288,8 +288,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 @pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "item 2"), ("rwkv6-3b", "item 10"),
                                        ("zamba2-1.2b", "item 10"), ("whisper-base", "item 10"),
                                        ("internvl2-26b", "item 10")])
-def test_unported_families_raise_naming_their_item(arch, item):
+def test_unported_families_raise_naming_their_item(arch, item, capsys):
     cfg = treg.reduced_config(arch)
+    if cfg.is_moe:  # item 2 is ported: the MoE family builds and serves at reduced_config
+        state = tzoo.init_decode_state(cfg, 2, 4, device="cpu")
+        logits, state = tzoo.make_decode_fn(cfg, device="cpu")(
+            tzoo.init_model(cfg, seed=0, device="cpu"), np.array([1, 2]), state)
+        assert logits.shape == (2, cfg.padded_vocab) and state["pos"].tolist() == [1, 1]
+        assert tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests",
+                             "2"]) == 0
+        assert capsys.readouterr().out.startswith("[serve] 2 requests,")
+        return
     with pytest.raises(NotImplementedError, match=item):
         tzoo.make_decode_fn(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
