@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with the card:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line).  They
-run in the order 1, 2, 6-8, 13, 16, 3-5, 12's Table II part, 10, 9, 11,
-12, 14, 15: phase 3's tensor is drawn in a child process on the host while
-phases 6-8, 13 and 16 keep the card busy.
+run in the order 1, 2, 6-8, 13, 16, 17, 3-5, 12's Table II part, 10, 9,
+11, 12, 14, 15: phase 3's tensor is drawn in a child process on the host
+while phases 6-8, 13, 16 and 17 keep the card busy.
 
   1. the card, the versions, both TF32 flags, and the build of every CUDA
      source with nvcc for sm_90a;
@@ -41,7 +41,10 @@ phases 6-8, 13 and 16 keep the card busy.
      over S in {1, 63, 64, 65, 127, 129, 200, 1000}, causal and not, (H, KV)
      in {(4, 4), (4, 2), (4, 1), (16, 8)}, D in {64, 128}, B in {1, 3},
      float32 and bfloat16, and over q, k, v that are strided views of one
-     fused projection: each case through the kernel ``variant_for`` picks
+     fused projection, and non-causal cross-attention cases with a key
+     length of their own (FLASH_CROSS_SEQS, among them (448, 1500),
+     (1, 1000), (129, 64) and (448, 4096)): each case through the kernel
+     ``variant_for`` picks
      (wgmma for bfloat16, the float32 kernel for float32) and each bfloat16
      case through the ``mma.sync`` kernel too; each output row within
      FLASH_ROW_TOL of its own norm (see ``max_row_error``), and each element
@@ -195,6 +198,29 @@ phases 6-8, 13 and 16 keep the card busy.
      ``launch/train.py``'s path, B = 4, S = 4096, 2 microbatches, remat
      "full", 6 steps: every loss, the step time, tokens/s, peak memory, the
      flash launches (96 a step), device time by class and model FLOP/s.
+ 17. the RWKV-6, hybrid, encoder-decoder and VLM families: (a) both
+     recurrence kernels (``kernels/recurrence/csrc/recurrence.cu``) against
+     their plain loops over S in {1, 2, 63, 64, 65, 129, 1000}, B in {1, 3},
+     H in {1, 5, 40}, contiguous and strided (1e-4 of each (b, h)'s largest
+     |plain|, two launches bit for bit); (b) zamba2-1.2b and (c) rwkv6-3b at
+     full width and depth: ``make_prefill_fn`` at B = 2, S = 32768 (one
+     warm-up, 3 timed; SSD 38 and flash 6 launches a prefill, WKV 32), the
+     scan kernel at that shape on layer 0's inputs against its plain loop
+     with its time and bound, the kernel path against the plain one at
+     S = 256, teacher-forced decode of 128 tokens against ``forward`` (for
+     rwkv6-3b these two bf16 checks are printed at 32 layers and held at 4),
+     each recurrent block in float32, and ``BatchServer`` on
+     ``launch/serve.py``'s load with a reused slot; the decode and serving
+     paths' launches are counted and must be 0 (they are plain PyTorch); (d)
+     whisper-base on ``input_specs(prefill_32k)`` at B = 2 (frames 32768,
+     448 tokens; 12 flash launches a prefill: 6 non-causal encoder, 6
+     cross-attention of 448 queries against 32768 keys), the kernel path
+     against plain at 256 frames and 64 tokens, decode against ``forward``
+     through ``fill_cross_cache``; (e) internvl2-26b at full width, 8 of 48
+     layers, B = 1, S = 32768 with 1024 patch embeddings (8 flash launches),
+     against plain at S = 256; (f) the wgmma flash kernel at phase 16's
+     training shape and at (b)'s and (d)'s shapes beside its plain version,
+     SDPA and the bound.
 
 The last four lines are phase 15's facts (``{"phase15": ...}``), the card's
 ``name, power.limit``, a JSON object
@@ -205,8 +231,9 @@ its per-ordering times, phase 11's per-tensor times and phase 12's tunes; its
 tile mode, on the blocked plans of phase 10, with the block kernel's time
 as ``previous_ms``; and the wgmma flash kernel
 with the ``mma.sync`` kernel's, phase 13's decode numbers and phase 16's
-training numbers, its launches on the training path under
-``launches_by_path``), and
+training numbers, its launches on the training path and phase 17's under
+``launches_by_path``; and the two recurrence kernels, ``library_ms`` null),
+and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
 """
@@ -214,6 +241,7 @@ script needs no network and imports no JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -264,6 +292,11 @@ from repro_torch.reorder import strategies as tstrat  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.data.lm_data import SyntheticLMStream  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkmod  # noqa: E402
+from repro_torch.kernels.recurrence import kernel as rkmod  # noqa: E402
+from repro_torch.kernels.recurrence import ref as rref  # noqa: E402
+from repro_torch.models import rwkv as trwkv  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import NEG_INF, max_row_error  # noqa: E402
 from repro_torch.models.attention import project_qkv  # noqa: E402
@@ -284,7 +317,7 @@ from repro_torch.dse import (  # noqa: E402
     measured_vs_modeled,
 )
 from repro_torch.experiments import engine as texp_engine  # noqa: E402
-from repro_torch.models.model_zoo import init_decode_state, make_decode_fn  # noqa: E402
+from repro_torch.models.model_zoo import init_decode_state, input_specs, make_decode_fn  # noqa: E402
 from repro_torch.runtime.serve_loop import BatchServer, ServeConfig  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     BucketExecutor,
@@ -317,6 +350,9 @@ PREFILL_REPS = 3  # timed prefills after one warm-up
 PLAIN_Q_CHUNK = 512  # query rows per step of the plain attention at full size
 FLASH_REPS = 5
 FLASH_SEQS = (1, 63, 64, 65, 127, 129, 200, 1000)  # 127, 129, 1000: S % 128 != 0
+# (S_q, S_kv) of non-causal cross-attention: whisper's 448 decoder positions
+# against 1500 encoder frames (its 30 s window) and against 4096; ragged tiles.
+FLASH_CROSS_SEQS = ((448, 1500), (1, 1000), (129, 64), (448, 4096), (64, 1), (200, 129))
 
 NELL2_DIMS = (12_100, 9_200, 28_800)  # paper Table II
 NELL2_NNZ = 76_900_000
@@ -1026,6 +1062,13 @@ def flash_inputs(dev):
         q, k, v = fused[:, :, :16], fused[:, :, 16:24], fused[:, :, 24:]
         check(not q.is_contiguous(), "the strided case's q is contiguous")
         yield f"strided bf16 S={s} causal={causal} H=16 KV=8 D={d} B=2", q, k, v, causal
+    # Cross-attention: S_q queries against S_kv keys of their own, not causal.
+    for dtype, (s, skv), (h, kvh), d in itertools.product(
+            (torch.float32, torch.bfloat16), FLASH_CROSS_SEQS, ((8, 8), (16, 8)), (64, 128)):
+        gen = torch.Generator(device=dev).manual_seed(s * 3 + skv + h + d)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((2, s, h, d), (2, skv, kvh, d), (2, skv, kvh, d)))
+        yield f"{dtype} S={s} S_kv={skv} causal=False H={h} KV={kvh} D={d} B=2", q, k, v, False
 
 
 def flash_cases(dev) -> None:
@@ -1122,9 +1165,10 @@ def logits_gap(got: torch.Tensor, want: torch.Tensor, vocab: int):
     return float((got - want).abs().max()), float(want.abs().max())
 
 
-def profile_prefill(prefill, model, batch, prefill_ms: float, matmul_flops: int) -> dict:
+def profile_prefill(prefill, model, batch, prefill_ms: float, matmul_flops: int | None) -> dict:
     """Device time of one prefill by kernel class, and the idle share of
-    ``prefill_ms`` (the unprofiled median)."""
+    ``prefill_ms`` (the unprofiled median); ``matmul_flops`` (None: not
+    printed) gives the products' rate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1139,6 +1183,9 @@ def profile_prefill(prefill, model, batch, prefill_ms: float, matmul_flops: int)
         name = e.key.lower()
         if "flash_fwd" in name:
             key = "flash"
+        elif "_scan_kernel" in name:  # the recurrence kernels (phase 17)
+            key = "scan"
+            classes.setdefault(key, 0.0)
         elif any(t in name for t in ("gemm", "sm90_", "cutlass", "nvjet", "xmma")):
             key = "matmul (cuBLAS)"
         else:
@@ -1149,8 +1196,9 @@ def profile_prefill(prefill, model, batch, prefill_ms: float, matmul_flops: int)
           f"(unprofiled), idle share {max(0.0, 1 - busy / prefill_ms):.3f}")
     for key, ms in classes.items():
         print(f"    {key:<16} {ms:10.2f} ms  {ms / busy:6.1%} of device time")
-    print(f"    matmul rate: {matmul_flops:.3e} flops per prefill, "
-          f"{matmul_flops / classes['matmul (cuBLAS)'] / 1e9:.1f} TFLOP/s")
+    if matmul_flops is not None:
+        print(f"    matmul rate: {matmul_flops:.3e} flops per prefill, "
+              f"{matmul_flops / classes['matmul (cuBLAS)'] / 1e9:.1f} TFLOP/s")
     for e in events[:10]:
         print(f"    {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5} {e.key[:90]}")
     return dict(busy_ms=busy, **{k.split()[0] + "_ms": v for k, v in classes.items()})
@@ -3084,6 +3132,597 @@ def training_phase(dev, card: str) -> dict:
     return parts
 
 
+# Phase 17: the RWKV-6, hybrid (Mamba2), encoder-decoder and VLM families at
+# full width, through the recurrence kernels and the flash kernel.
+FAMILY_BATCH = 2  # prefill_32k's global batch of 32, cut to 2
+FAMILY_SEQ = 32_768  # prefill_32k's length
+FAMILY_REPS = 3  # timed prefills after one warm-up
+FAMILY_CHECK_SEQ = 256
+FAMILY_DECODE = 128  # teacher-forced decode steps
+VLM_ARCH = "internvl2-26b"
+VLM_LAYERS = 8  # of 48: float32 masters of all 48 outgrow the 80 GB card
+VLM_BATCH = 1
+SCAN_TOL = 1e-4  # of the largest |plain| of each (b, h): float32 sums in another order
+# recurrent_blocks: float32 on both sides; the scans alone differ by up to
+# 3.3e-5 of a head's largest output (phase 17 (a)), the layer's norms and
+# products add float32 rounding; 1e-3 leaves 30x room and is 50x below
+# BF16_SCALE_TOL.  The whole-model bf16 comparison does not hold for
+# rwkv6-3b with random weights: on the CPU a relative 1e-6 perturbation of
+# each layer's WKV output grows ~1.9x a layer in float32 (2e-5, 1e-4, 1.2e-3
+# of the logits at 2, 4 and 8 full-width layers), and bf16 rounding alone
+# puts 2.3% between two runs at 2 layers; at 32 layers the two correct
+# paths differ by half the logits' range.  So rwkv6-3b's whole-model bf16
+# checks are held at RWKV_HELD_LAYERS full-width layers (a model of its own,
+# init_model(seed=0)) and printed at 32.
+BLOCK_TOL = 1e-3
+RWKV_HELD_LAYERS = 4
+SCAN_SEQS = (1, 2, 63, 64, 65, 129, 1000)  # the kernels stage 32 steps at a time
+SCAN_BATCHES = (1, 3)
+SCAN_HEADS = (1, 5, 40)
+# Float32 operations per state entry and step: WKV-6 2 for y (r_i S_ij summed
+# over i) and 3 for S <- w S + k v; SSD 3 for h <- decay h + dtx b and 2 for
+# y (h c summed over n).  Per step and output column, WKV-6's bonus term
+# v_j sum_i r_i u_i k_i adds 3 (the dot product, shared by the columns) + 2.
+SCAN_FLOPS = {"wkv6": 5, "ssd": 5}
+SCAN_FLOPS_PER_COLUMN = {"wkv6": 5, "ssd": 0}
+# Row 2's training shape (B, S_q, S_kv, H, KV, D, causal) and phase 17's new ones.
+FLASH_NEW_SHAPES = {
+    "training shape (phase 16e): B=2 S=4096 H=16 KV=8 D=64 causal": (2, 4096, 4096, 16, 8, 64, True),
+    "zamba2-1.2b shared block: B=2 S=32768 H=32 KV=32 D=64 causal": (2, 32768, 32768, 32, 32, 64,
+                                                                   True),
+    "whisper-base encoder: B=2 S=32768 H=8 D=64 not causal": (2, 32768, 32768, 8, 8, 64, False),
+    "whisper-base cross-attention: B=2 S_q=448 S_kv=32768 H=8 D=64": (2, 448, 32768, 8, 8, 64,
+                                                                      False),
+}
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """The models' recurrences through their plain per-step loops, on the
+    card too (the kernel-against-plain checks); restored on exit."""
+    saved = trwkv.wkv6_scan, tssm.ssd_scan
+    trwkv.wkv6_scan, tssm.ssd_scan = rref.wkv6_scan_ref, rref.ssd_scan_ref
+    try:
+        yield
+    finally:
+        trwkv.wkv6_scan, tssm.ssd_scan = saved
+
+
+class _Captured(Exception):
+    pass
+
+
+def first_call_args(module, name: str, run) -> list:
+    """Clones of the tensors the first call of ``module.<name>`` gets in
+    ``run()``; that call raises, so ``run`` stops there."""
+    real, got = getattr(module, name), {}
+
+    def hook(*args):
+        got["args"] = [a.clone() for a in args]
+        raise _Captured
+
+    setattr(module, name, hook)
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        setattr(module, name, real)
+    check("args" in got, f"{module.__name__}.{name} was not called")
+    return got["args"]
+
+
+def scan_inputs(kind: str, b: int, s: int, h: int, dev, *, strided: bool, seed: int):
+    """Phase 17 (a)'s inputs: contiguous, or strided views of one projection
+    (r, k, v, w; dtx, b, c), as tests/test_torch_recurrence_cuda.py draws them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "wkv6":
+        if strided:
+            fused = torch.randn((b, s, 4 * h * 64 + 32), generator=gen, device=dev)
+            r, k, v, w = (fused[..., i * h * 64:(i + 1) * h * 64].view(b, s, h, 64)
+                          for i in range(4))
+        else:
+            r, k, v, w = (torch.randn((b, s, h, 64), generator=gen, device=dev) for _ in range(4))
+        w = torch.exp(-torch.exp(w.clamp(max=0.5) - 3.0))
+        return r, k, v, w, 0.1 * torch.randn((h, 64), generator=gen, device=dev)
+    if strided:
+        conv = torch.randn((b, s, h * 64 + 128), generator=gen, device=dev)
+        dtx = conv[..., :h * 64].view(b, s, h, 64)
+        bm, cm = conv[..., h * 64:h * 64 + 64], conv[..., h * 64 + 64:]
+    else:
+        dtx = torch.randn((b, s, h, 64), generator=gen, device=dev)
+        bm, cm = (torch.randn((b, s, 64), generator=gen, device=dev) for _ in range(2))
+    return torch.exp(-2.0 * torch.rand((b, s, h), generator=gen, device=dev)), dtx, bm, cm
+
+
+SCANS = {"wkv6": (rkmod.wkv6_scan_cuda, rref.wkv6_scan_ref),
+         "ssd": (rkmod.ssd_scan_cuda, rref.ssd_scan_ref)}
+
+
+def per_head_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| over each (b, h) of (B, S, H, 64)."""
+    scale = want.abs().amax(dim=(1, 3), keepdim=True).clamp_min(1e-30)
+    return float(((got - want).abs() / scale).max())
+
+
+def scan_cases(dev) -> dict:
+    """Phase 17 (a): both recurrence kernels against their plain versions."""
+    worst = {}
+    for kind, (kernel, plain) in SCANS.items():
+        failures, errs = [], []
+        for s, b, h, strided in itertools.product(SCAN_SEQS, SCAN_BATCHES, SCAN_HEADS,
+                                                  (False, True)):
+            args = scan_inputs(kind, b, s, h, dev, strided=strided, seed=s * 7 + h + b)
+            got, again = kernel(*args), kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = per_head_error(got, want)
+            errs.append(err)
+            if not (err <= SCAN_TOL and torch.equal(got, again) and got.shape == want.shape):
+                failures.append(f"S={s} B={b} H={h} strided={strided}: error {err:.3e}, "
+                                f"repeat equal {torch.equal(got, again)}")
+        worst[kind] = max(errs)
+        print(f"  {kind} kernel: {len(errs)} cases (S {SCAN_SEQS}, B {SCAN_BATCHES}, H "
+              f"{SCAN_HEADS}, contiguous and strided), max error {max(errs):.3e} of each (b, h)'s "
+              f"largest |plain| (tol {SCAN_TOL:g}), every repeat bit for bit")
+        check(not failures, f"the {kind} kernel disagrees with its plain version: {failures[:5]}")
+    return worst
+
+
+def scan_full_shape(kind: str, args: list, card: str) -> dict:
+    """One kernel at the main path's shape (layer 0's inputs) against its plain
+    loop: error, CUDA-event times and the bound."""
+    kernel, plain = SCANS[kind]
+    got = kernel(*args)
+    ms = median_ms(lambda: kernel(*args), FLASH_REPS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = per_head_error(got, want)
+    max_abs = float((got - want).abs().max())
+    b, s, h, hd = got.shape
+    state = args[2].shape[-1] if kind == "ssd" else hd
+    nbytes = (sum(a.numel() for a in args) + got.numel()) * 4
+    flops = (SCAN_FLOPS[kind] * state + SCAN_FLOPS_PER_COLUMN[kind]) * b * s * h * hd
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    bound_by = "operations" if flops / F32_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    print(f"  {kind} kernel at B={b} S={s} H={h} (layer 0's inputs): {ms:.3f} ms, plain loop "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB at "
+          f"3.35 TB/s, {flops:.3e} float32 flops at 67 TFLOP/s), share of bound "
+          f"{bound_ms / ms:.3f}; error {err:.3e} of each (b, h)'s largest |plain| (tol "
+          f"{SCAN_TOL:g}), max |kernel - plain| {max_abs:.3e}  [{card}]")
+    check(err <= SCAN_TOL, f"the {kind} kernel disagrees with its plain loop at full shape")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max_abs, rel_err=err, shape=[b, s, h, hd])
+
+
+LAUNCH_COUNTERS = {"flash": lambda: fkmod.flash_attention_cuda.launches,
+                   "wkv6": lambda: rkmod.wkv6_scan_cuda.launches,
+                   "ssd": lambda: rkmod.ssd_scan_cuda.launches}
+
+
+def family_prefill(label: str, cfg, model, batch: dict, positions: int, expect: dict,
+                   card: str) -> dict:
+    """``make_prefill_fn`` once to warm up and FAMILY_REPS times timed; each
+    run must launch each kernel as ``expect`` says, the flash kernel as wgmma."""
+    prefill = make_prefill_fn(cfg, device=batch["tokens"].device)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    times, walls = [], []
+    fkmod.reset_launch_counts()  # the main path starts here
+    rkmod.reset_launch_counts()
+    for rep in range(1 + FAMILY_REPS):
+        before = {k: f() for k, f in LAUNCH_COUNTERS.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        logits = prefill(model, batch)
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        grew = {k: f() - before[k] for k, f in LAUNCH_COUNTERS.items()}
+        check(grew == expect, f"{label}: prefill {rep} launched {grew}, expected {expect}")
+        if rep:
+            times.append(start.elapsed_time(end))
+    launches = {k: f() for k, f in LAUNCH_COUNTERS.items()}  # the main path ends here
+    by_variant = dict(fkmod.flash_attention_cuda.launches_by_variant)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(times))
+    b = batch["tokens"].shape[0]
+    check(logits.shape == (b, cfg.padded_vocab), f"{label}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite next-token logits")
+    check(bool((logits[:, cfg.vocab_size:] < -1e8).all()), f"{label}: padded vocabulary not masked")
+    check(by_variant["wgmma"] == launches["flash"], f"{label}: flash launches {by_variant}")
+    profile = profile_prefill(prefill, model, batch, ms, None)
+    print(f"  {label} prefill: median {ms:.2f} ms (CUDA events; runs "
+          f"{[round(t, 2) for t in times]}), host wall {[round(w, 2) for w in walls[1:]]} ms, "
+          f"{positions / ms * 1e3:.0f} positions/s; launches over {1 + FAMILY_REPS} prefills "
+          f"{launches} ({expect} each; flash by variant {by_variant}); peak device memory "
+          f"{peak:.2f} GB  [{card}]")
+    del logits
+    return dict(ms=ms, walls_ms=walls[1:], positions_per_s=positions / ms * 1e3, peak_gb=peak,
+                launches=launches, per_prefill=expect, profile_ms=profile)
+
+
+def family_vs_plain(label: str, cfg, model, batch: dict, *, hold: bool = True) -> dict:
+    """The kernel path (scan kernels, the flash kernel: ``attention_impl``
+    "blocked") against the plain one (plain scans, dense attention).  With
+    ``hold=False`` the gap is printed, not checked (rwkv6-3b at 32 layers:
+    see BLOCK_TOL)."""
+    with torch.inference_mode():
+        kern = forward(model, dataclasses.replace(cfg, attention_impl="blocked"), batch)
+        with plain_scans():
+            plain = forward(model, dataclasses.replace(cfg, attention_impl="dense"), batch)
+    check(kern.shape[:2] == batch["tokens"].shape[:2],
+          f"{label}: logits {tuple(kern.shape)}, one a token expected (after any prefix)")
+    gap, scale = logits_gap(kern, plain, cfg.vocab_size)
+    print(f"  {label}, kernel path vs plain path (plain scans, dense attention), "
+          f"{ {k: tuple(v.shape) for k, v in batch.items()} }: max |gap| {gap:.4f} of max |logit| "
+          f"{scale:.3f} ({f'tol {BF16_SCALE_TOL} x scale' if hold else 'printed, not held'})")
+    check(not hold or gap <= BF16_SCALE_TOL * scale,
+          f"{label}: the kernel path's logits differ from plain")
+    return dict(gap=gap, scale=scale, held=hold)
+
+
+def family_decode(label: str, cfg, model, toks: torch.Tensor, frames=None, *,
+                  hold: bool = True) -> dict:
+    """Teacher-forced decode of ``toks`` (1, n) against ``forward``; whisper's
+    cross cache filled from ``frames`` by ``fill_cross_cache``.  With
+    ``hold=False`` the gap is printed, not checked (rwkv6-3b at 32 layers)."""
+    dev = toks.device
+    batch = {"tokens": toks} if frames is None else {"tokens": toks, "frames": frames}
+    state = init_decode_state(cfg, 1, toks.shape[1], device=dev)
+    decode = make_decode_fn(cfg, device=dev)
+    with torch.inference_mode():
+        full = forward(model, cfg, batch)[0].float()
+        if frames is not None:
+            ttr.fill_cross_cache(model, cfg, frames, state)
+    torch.cuda.synchronize()
+    fkmod.reset_launch_counts()  # the main path (decode_step) starts here
+    rkmod.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = [decode(model, toks[:, t], state)[0][0] for t in range(toks.shape[1])]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f() for k, f in LAUNCH_COUNTERS.items()}  # and ends here
+    gap, scale = logits_gap(torch.stack(steps), full, cfg.vocab_size)
+    n = toks.shape[1]
+    print(f"  {label}, teacher-forced decode of {n} tokens against forward: max |gap| {gap:.4f} "
+          f"of max |logit| {scale:.3f} ({f'tol {BF16_SCALE_TOL} x scale' if hold else 'printed, not held'}); "
+          f"{seconds:.2f} s host, {n / seconds:.1f} steps/s; pos {state['pos'].tolist()}; "
+          f"hand-written kernels launched by the decode steps {launches}")
+    check(bool(torch.isfinite(torch.stack(steps)).all()), f"{label}: non-finite decode logits")
+    check(not hold or gap <= BF16_SCALE_TOL * scale, f"{label}: decode logits differ from forward's")
+    check(state["pos"].tolist() == [n], f"{label}: pos did not advance once a step")
+    check(not any(launches.values()), f"{label}: the decode path launched a hand-written kernel")
+    return dict(gap=gap, scale=scale, seconds=seconds, steps_per_s=n / seconds, held=hold,
+                launches=launches)
+
+
+def recurrent_blocks(label: str, cfg, model, toks: torch.Tensor) -> dict:
+    """Block by block in float32 (a block: one rwkv6-3b layer; one zamba2-1.2b
+    group of ``shared_attn_every`` Mamba layers with the shared block after
+    it, and the trailing layers): from the kernel path's input to each block,
+    the block's output through the kernel path (scan kernels, the flash
+    kernel's float32 variant), through the plain one (plain scans, dense
+    attention) and through the decode path's per-token update
+    (``transformer._decode_rwkv`` / ``_decode_hybrid``, a state of the block's
+    own); each output's change to the residual within BLOCK_TOL of the
+    largest.  Random-weight models this deep amplify any difference: a
+    whole-model comparison holds two correct paths only as far as the
+    amplification allows (see BLOCK_TOL)."""
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    kern_cfg = dataclasses.replace(c32, attention_impl="blocked")
+    plain_cfg = dataclasses.replace(c32, attention_impl="dense")
+    p = model.params()
+    b, n = toks.shape
+    every = cfg.shared_attn_every or 1
+    if cfg.rwkv:
+        blocks = [(i, i + 1) for i in range(cfg.num_layers)]
+    else:
+        blocks = [(lo, min(lo + every, cfg.num_layers)) for lo in range(0, cfg.num_layers, every)]
+
+    def seq(c, lo, hi, x):
+        for i in range(lo, hi):
+            lp = p["layers"][i]
+            x = (ttr._rwkv_layer_seq(lp, c, x) if cfg.rwkv
+                 else ttr._hybrid_layer_seq(lp, c, x, p.get("shared_attn"), i))
+        return x
+
+    def stepped(lo, hi, x):
+        params = {"layers": p["layers"][lo:hi], "shared_attn": p.get("shared_attn")}
+        state = {k: v[lo:hi] if k not in ("pos", "shared_k", "shared_v") else v
+                 for k, v in init_decode_state(c32, b, n, cache_dtype=torch.float32,
+                                               device=toks.device).items()}
+        if "shared_k" in state:
+            g = lo // every
+            state["shared_k"], state["shared_v"] = (state[k][g:g + 1]
+                                                    for k in ("shared_k", "shared_v"))
+        outs = []
+        for t in range(n):
+            step = ttr._decode_rwkv if cfg.rwkv else ttr._decode_hybrid
+            outs.append(step(params, c32, x[:, t:t + 1], state))
+            state["pos"] += 1
+        return torch.cat(outs, dim=1)
+
+    worst = {"plain": 0.0, "decode": 0.0}
+    with torch.inference_mode():
+        x = p["embed"]["emb"][toks.long()].float()
+        for lo, hi in blocks:
+            y = seq(kern_cfg, lo, hi, x)
+            with plain_scans():
+                y_plain = seq(plain_cfg, lo, hi, x)
+            y_dec = stepped(lo, hi, x)
+            scale = float((y - x).abs().max())
+            for key, other in (("plain", y_plain), ("decode", y_dec)):
+                worst[key] = max(worst[key], float((other - y).abs().max()) / scale)
+            x = y
+    print(f"  {label}, block by block in float32 ({len(blocks)} blocks, B={b}, S={n}): each "
+          f"block's output through the plain path within {worst['plain']:.3e}, through the "
+          f"decode steps within {worst['decode']:.3e} of its largest change to the residual "
+          f"(tol {BLOCK_TOL:g})")
+    check(worst["plain"] <= BLOCK_TOL, f"{label}: a block's kernel path differs from plain")
+    check(worst["decode"] <= BLOCK_TOL, f"{label}: a block's decode steps differ from forward")
+    return dict(blocks=len(blocks), plain=worst["plain"], decode=worst["decode"])
+
+
+def family_serve(label: str, cfg, model, dev, card: str) -> dict:
+    """``launch/serve.py``'s load through ``BatchServer`` (8 requests, 4 slots,
+    ``max_len`` 48), then a reused slot's tokens against a fresh server's."""
+    n_req, slots, max_len = SERVE_RUNS["launch/serve.py's load"][0], 4, 48
+    srv = BatchServer(cfg, model, ServeConfig(max_slots=slots, max_len=max_len), device=dev)
+    events = []
+    srv.decode = timed_decode(srv.decode, events)
+    torch.cuda.synchronize()
+    fkmod.reset_launch_counts()  # the main path (BatchServer) starts here
+    rkmod.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        srv.submit(f"req-{i}", [2 + (i % 11), 5, 7, 3])
+    done = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(d["tokens"]) for d in done)
+    tick_ms = float(np.median([s.elapsed_time(e) for s, e in events]))
+    check(sorted(d["id"] for d in done) == sorted(f"req-{i}" for i in range(n_req)),
+          f"{label}: a request was not answered")
+    check(all(d["tokens"] for d in done), f"{label}: an empty answer")
+    prompt = next(SyntheticLMStream(cfg.vocab_size, 16, 1, seed=5))["tokens"][0].tolist()
+    outs = []
+    for first in ([3, 3], None):
+        srv = BatchServer(cfg, model, ServeConfig(max_slots=1, max_len=32, eos_id=-1), device=dev)
+        if first is not None:
+            srv.submit("a", first)
+        srv.submit("b", prompt)
+        outs.append({d["id"]: d["tokens"] for d in srv.run_until_drained()}["b"])
+    launches = {k: f() for k, f in LAUNCH_COUNTERS.items()}  # the main path ends here
+    print(f"  {label}, BatchServer on launch/serve.py's load: {len(done)} of {n_req} requests, "
+          f"{tokens} tokens in {len(events)} ticks, {wall:.2f} s, {tokens / wall:.1f} tokens/s; "
+          f"ticks median {tick_ms:.3f} ms between CUDA events ({wall / len(events) * 1e3:.3f} ms "
+          f"wall each); a reused slot's tokens {'equal' if outs[0] == outs[1] else 'DIFFER FROM'} "
+          f"a fresh server's; hand-written kernels launched by the servers {launches}  [{card}]")
+    check(outs[0] == outs[1], f"{label}: a reused slot's tokens differ from a fresh server's")
+    check(not any(launches.values()), f"{label}: the serving path launched a hand-written kernel")
+    return dict(requests=len(done), tokens=tokens, ticks=len(events), wall_s=wall,
+                tokens_per_s=tokens / wall, tick_device_ms_p50=tick_ms, launches=launches)
+
+
+def lm_tokens(cfg, b: int, s: int, dev, seed: int) -> torch.Tensor:
+    return torch.from_numpy(next(SyntheticLMStream(cfg.vocab_size, s, b, seed=seed))["tokens"]
+                            ).to(dev)
+
+
+def bf16_randn(shape, dev, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def flash_new_shapes(dev, card: str) -> dict:
+    """The wgmma kernel at row 2's training shape and at the shapes phase 17
+    gives it, against its plain version (row and elementwise limits), with its
+    time, the plain version's, SDPA's (a yardstick the port never calls) and
+    the bound."""
+    out = {}
+    for label, (b, s, skv, h, kvh, d, causal) in FLASH_NEW_SHAPES.items():
+        q = bf16_randn((b, s, h, d), dev, s + h)
+        k, v = (bf16_randn((b, skv, kvh, d), dev, skv + kvh + i) for i in range(2))
+        got = fkmod.flash_attention_cuda(q, k, v, causal=causal)
+        ms = median_ms(lambda: fkmod.flash_attention_cuda(q, k, v, causal=causal), FLASH_REPS)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = flash_attention_plain(q, k, v, causal=causal, q_chunk=PLAIN_Q_CHUNK)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        row = max_row_error(got, want)
+        diff = (got.float() - want.float()).abs()
+        within = bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all())
+        max_abs = float(diff.max())
+        del want, diff
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=kvh != h), FLASH_REPS)
+        del qt, kt, vt
+        pairs = s * (s + 1) // 2 if causal else s * skv
+        flops = 4 * d * pairs * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / BF16_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+        print(f"  flash (wgmma) at {label}: {ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA "
+              f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, share of bound "
+              f"{bound_ms / ms:.3f}; max row error {row:.3e} (tol {FLASH_ROW_TOL[q.dtype]:g}), "
+              f"elementwise {'ok' if within else 'FAIL'}  [{card}]")
+        check(row <= FLASH_ROW_TOL[q.dtype] and within,
+              f"the wgmma flash kernel disagrees with its plain version at {label}")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_row_err=row, max_abs_err=max_abs)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_launches(fams: dict, kind: str) -> dict:
+    """Launches of one kernel counted on phase 17's decode and serving paths."""
+    return {f"{path}, {arch} (phase 17)": entry[key]["launches"][kind]
+            for arch, entry in fams.items()
+            for key, path in (("decode", "decode_step"), ("serve", "BatchServer"))
+            if key in entry}
+
+
+def scan_entries(families: dict) -> list[dict]:
+    """The ``kernels`` line's entries of the two recurrence kernels, from phase 17."""
+    fams = families["families"]
+    out = []
+    for kind, arch, name, site, what in (
+            ("wkv6", "rwkv6-3b", "wkv6_scan_kernel", "src/repro/models/rwkv.py:154",
+             "the lax.scan of rwkv_time_mix_seq (through _chunked_scan); no Pallas kernel"),
+            ("ssd", "zamba2-1.2b", "ssd_scan_kernel", "src/repro/models/ssm.py:108",
+             "the lax.scan of mamba_seq (through _chunked_scan); no Pallas kernel")):
+        full = fams[arch][f"{kind}_full"]
+        b, s, h, hd = full["shape"]
+        by_path = {f"prefill, {arch} (phase 17)": fams[arch]["prefill"]["launches"][kind],
+                   **decode_launches(fams, kind)}
+        out.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/recurrence/csrc/recurrence.cu",
+            replaces=site, replaces_note=what, launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=full["max_abs_err"],
+            max_err_per_head=full["rel_err"], cases_max_err=families["scan_cases_max_err"][kind],
+            ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+            bound_by=full["bound_by"], library_ms=None,
+            per=f"one layer's scan, B={b} S={s} H={h} float32, layer 0's inputs of {arch}",
+            prefill_ms=fams[arch]["prefill"]["ms"]))
+    return out
+
+
+def families_phase(dev, card: str) -> dict:
+    """Phase 17: the recurrence kernels against plain, then zamba2-1.2b,
+    rwkv6-3b and whisper-base at full width and depth and internvl2-26b at
+    full width, 8 of 48 layers: prefill (launches counted per kernel), the
+    kernel path against the plain one, decode against forward, serving; the
+    flash kernel at the new shapes beside SDPA."""
+    t_start = time.perf_counter()
+    phase("phase 17: the RWKV-6, hybrid, encoder-decoder and VLM families on the card")
+    print("  (a) the recurrence kernels against their plain loops")
+    worst = scan_cases(dev)
+    result = {"scan_cases_max_err": worst, "families": {}}
+    fam = result["families"]
+
+    # (b) zamba2-1.2b: Mamba2 layers through the SSD kernel, the shared block through flash.
+    cfg = get_config("zamba2-1.2b")
+    print(f"  (b) {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads, head_dim {cfg.head_dim}, ssm_state {cfg.ssm_state}, shared block every "
+          f"{cfg.shared_attn_every}, {cfg.param_count() / 1e9:.3f}e9 parameters, {cfg.dtype}")
+    model = init_model(cfg, seed=0, device=dev)
+    batch = {"tokens": lm_tokens(cfg, FAMILY_BATCH, FAMILY_SEQ, dev, seed=0)}
+    n_shared = cfg.num_layers // cfg.shared_attn_every
+    entry = {"prefill": family_prefill(cfg.name, cfg, model, batch, FAMILY_BATCH * FAMILY_SEQ,
+                                       {"flash": n_shared, "wkv6": 0, "ssd": cfg.num_layers}, card)}
+    with torch.inference_mode():
+        args = first_call_args(tssm, "ssd_scan", lambda: forward(model, cfg, batch))
+    entry["ssd_full"] = scan_full_shape("ssd", args, card)
+    del args
+    entry["vs_plain"] = family_vs_plain(cfg.name, cfg, model, {
+        "tokens": lm_tokens(cfg, 2, FAMILY_CHECK_SEQ, dev, seed=1)})
+    entry["decode"] = family_decode(cfg.name, cfg, model, lm_tokens(cfg, 1, FAMILY_DECODE, dev, 3))
+    entry["blocks"] = recurrent_blocks(cfg.name, cfg, model,
+                                       lm_tokens(cfg, 2, FAMILY_DECODE, dev, seed=4))
+    entry["serve"] = family_serve(cfg.name, cfg, model, dev, card)
+    fam[cfg.name] = entry
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) rwkv6-3b: every layer's WKV through the WKV-6 kernel, no attention.
+    cfg = get_config("rwkv6-3b")
+    print(f"  (c) {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.d_model // 64} WKV heads, d_ff {cfg.d_ff}, {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters, {cfg.dtype}")
+    model = init_model(cfg, seed=0, device=dev)
+    batch = {"tokens": lm_tokens(cfg, FAMILY_BATCH, FAMILY_SEQ, dev, seed=0)}
+    entry = {"prefill": family_prefill(cfg.name, cfg, model, batch, FAMILY_BATCH * FAMILY_SEQ,
+                                       {"flash": 0, "wkv6": cfg.num_layers, "ssd": 0}, card)}
+    with torch.inference_mode():
+        args = first_call_args(trwkv, "wkv6_scan", lambda: forward(model, cfg, batch))
+    entry["wkv6_full"] = scan_full_shape("wkv6", args, card)
+    del args
+    # The whole-model gaps at 32 layers are printed; they are held at
+    # RWKV_HELD_LAYERS layers and block by block (BLOCK_TOL says why).
+    entry["vs_plain"] = family_vs_plain(cfg.name, cfg, model, {
+        "tokens": lm_tokens(cfg, 2, FAMILY_CHECK_SEQ, dev, seed=1)}, hold=False)
+    entry["decode"] = family_decode(cfg.name, cfg, model, lm_tokens(cfg, 1, FAMILY_DECODE, dev, 3),
+                                    hold=False)
+    cut = dataclasses.replace(cfg, num_layers=RWKV_HELD_LAYERS)
+    cut_model, cut_label = init_model(cut, seed=0, device=dev), f"{cfg.name} ({cut.num_layers} layers)"
+    entry["vs_plain_cut"] = family_vs_plain(cut_label, cut, cut_model, {
+        "tokens": lm_tokens(cut, 2, FAMILY_CHECK_SEQ, dev, seed=1)})
+    entry["decode_cut"] = family_decode(cut_label, cut, cut_model,
+                                        lm_tokens(cut, 1, FAMILY_DECODE, dev, 3))
+    del cut_model
+    entry["blocks"] = recurrent_blocks(cfg.name, cfg, model,
+                                       lm_tokens(cfg, 2, FAMILY_DECODE, dev, seed=4))
+    entry["serve"] = family_serve(cfg.name, cfg, model, dev, card)
+    fam[cfg.name] = entry
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) whisper-base on input_specs(prefill_32k), its batch cut to 2.
+    cfg = get_config("whisper-base")
+    specs = input_specs(cfg, dataclasses.replace(SHAPES["prefill_32k"],
+                                                 global_batch=FAMILY_BATCH))
+    print(f"  (d) {cfg.name}: {cfg.encoder_layers} encoder and {cfg.num_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads, head_dim {cfg.head_dim}; input_specs: "
+          f"{ {k: (tuple(v.shape), str(v.dtype)) for k, v in specs.items()} }")
+    model = init_model(cfg, seed=0, device=dev)
+    frames = bf16_randn(tuple(specs["frames"].shape), dev, 0)
+    batch = {"frames": frames, "tokens": lm_tokens(cfg, *specs["tokens"].shape, dev, seed=0)}
+    entry = {"prefill": family_prefill(
+        cfg.name, cfg, model, batch, frames.shape[0] * frames.shape[1],
+        {"flash": cfg.encoder_layers + cfg.num_layers, "wkv6": 0, "ssd": 0}, card)}
+    del batch, frames
+    entry["vs_plain"] = family_vs_plain(cfg.name, cfg, model, {
+        "frames": bf16_randn((2, FAMILY_CHECK_SEQ, cfg.d_model), dev, 1),
+        "tokens": lm_tokens(cfg, 2, 64, dev, seed=1)})
+    entry["decode"] = family_decode(
+        cfg.name, cfg, model, lm_tokens(cfg, 1, 64, dev, seed=3),
+        frames=bf16_randn((1, cfg.max_target_len, cfg.d_model), dev, 3))
+    fam[cfg.name] = entry
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) internvl2-26b at full width, depth cut, 1024 patch embeddings before the text.
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    specs = input_specs(cfg, dataclasses.replace(SHAPES["prefill_32k"], global_batch=VLM_BATCH))
+    print(f"  (e) {VLM_ARCH}: {VLM_LAYERS} of {get_config(VLM_ARCH).num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads, {cfg.num_kv_heads} KV heads, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}; input_specs: "
+          f"{ {k: (tuple(v.shape), str(v.dtype)) for k, v in specs.items()} }")
+    model = init_model(cfg, seed=0, device=dev)
+    batch = {"prefix_embeds": bf16_randn(tuple(specs["prefix_embeds"].shape), dev, 0),
+             "tokens": lm_tokens(cfg, *specs["tokens"].shape, dev, seed=0)}
+    entry = {"prefill": family_prefill(f"{VLM_ARCH} ({VLM_LAYERS} layers)", cfg, model, batch,
+                                       VLM_BATCH * FAMILY_SEQ,
+                                       {"flash": VLM_LAYERS, "wkv6": 0, "ssd": 0}, card)}
+    del batch
+    entry["vs_plain"] = family_vs_plain(VLM_ARCH, cfg, model, {
+        "prefix_embeds": bf16_randn((1, 64, cfg.d_model), dev, 1),
+        "tokens": lm_tokens(cfg, 1, FAMILY_CHECK_SEQ - 64, dev, seed=1)})
+    fam[VLM_ARCH] = entry
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("  (f) the flash kernel at row 2's training shape and phase 17's shapes")
+    result["flash_shapes"] = flash_new_shapes(dev, card)
+    result["seconds"] = time.perf_counter() - t_start
+    print(f"  phase 17 took {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -3124,20 +3763,23 @@ def main() -> int:
         trained = training_phase(dev, card)
         gc.collect()
         torch.cuda.empty_cache()
+        families = families_phase(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         mttkrp_entry, nell2, lex_fits, eager_fits = cp_als_phases(dev, card, draw)
         # Phase 12's Table II part and phase 10 run here, while phase 3's
         # tensor and lex plans are resident.
         table2 = autotune_table2_phase(dev, card, nell2, lex_fits)
         ordered = ordering_phase(dev, card, nell2, lex_fits)
         return _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, table2,
-                                   ordered, draw.paths, flash_entry, decoded, trained)
+                                   ordered, draw.paths, flash_entry, decoded, trained, families)
     finally:
         draw.stop()
         shutil.rmtree(shard_dir, ignore_errors=True)
 
 
 def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, table2, ordered,
-                        paths, flash_entry, decoded, trained) -> int:
+                        paths, flash_entry, decoded, trained, families) -> int:
     nell2_shape = nell2.shape
     del nell2
     gc.collect()
@@ -3225,9 +3867,17 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
         "runs", "ref", "speedup", "energy", "engine_s", "recon_s", "gates_s", "reorder_s")}
     mttkrp_entry["autotune"] = dict(table2={k: v for k, v in table2.items() if k != "launches"},
                                     **{k: v for k, v in tuned.items() if not k.startswith("launches")})
+    fams = families["families"]
     flash_entry["launches_by_path"] = {
         "prefill (phase 7)": flash_entry["launches"], "decode_step, BatchServer (phase 13)": 0,
-        f"train(), {TRAIN_ARCH} full width (phase 16)": trained["full"]["launches"]}
+        f"train(), {TRAIN_ARCH} full width (phase 16)": trained["full"]["launches"],
+        "prefill, zamba2-1.2b (phase 17b)": fams["zamba2-1.2b"]["prefill"]["launches"]["flash"],
+        "prefill, rwkv6-3b (phase 17c)": fams["rwkv6-3b"]["prefill"]["launches"]["flash"],
+        "prefill, whisper-base (phase 17d)": fams["whisper-base"]["prefill"]["launches"]["flash"],
+        f"prefill, {VLM_ARCH} {VLM_LAYERS} layers (phase 17e)":
+            fams[VLM_ARCH]["prefill"]["launches"]["flash"],
+        **decode_launches(fams, "flash")}
+    flash_entry["phase17_shapes"] = families["flash_shapes"]
     flash_entry["launches"] = sum(flash_entry["launches_by_path"].values())
     flash_entry["lse_max_abs_err"] = trained["lse"]["max_abs_err"]
     flash_entry["training"] = {k: trained[k] for k in ("lse", "grad", "moe", "reduced", "full")}
@@ -3239,7 +3889,7 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
         "stacked_plain_ms", "stacked_bound_ms")}
     total_s = time.perf_counter() - T_START
     print(f"total {total_s:.1f} s")
-    kernels = [mttkrp_entry, tile_entry, flash_entry]
+    kernels = [mttkrp_entry, tile_entry, flash_entry, *scan_entries(families)]
     print(json.dumps({"phase15": contracts}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -86,23 +86,37 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
+def _unstack(stacked: dict, n: int) -> list[dict]:
+    return [_map_tree(lambda t, i=i: t[i].clone(), stacked) for i in range(n)]
+
+
 def _split_layers(cfg: ModelConfig, tree: dict, tensor) -> dict:
-    """The JAX layout's stacked ``layers`` split into a list of per-layer dicts."""
-    ported = {k: _map_tree(tensor, v) for k, v in tree.items() if k != "layers"}
-    stacked = _map_tree(tensor, tree["layers"])
-    ported["layers"] = [
-        _map_tree(lambda t, i=i: t[i].clone(), stacked) for i in range(cfg.num_layers)
-    ]
+    """The JAX layout's stacked layer stacks (``layers``, ``cross`` and
+    ``encoder.layers``, each with a leading layer axis) split into lists of
+    per-layer dicts; every other subtree (``shared_attn``, the encoder's
+    ``final_ln``) as it is."""
+    stacks = {"layers": cfg.num_layers, "cross": cfg.num_layers}
+    ported = {k: _map_tree(tensor, v) for k, v in tree.items()
+              if k not in stacks and k != "encoder"}
+    for key, n in stacks.items():
+        if key in tree:
+            ported[key] = _unstack(_map_tree(tensor, tree[key]), n)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        ported["encoder"] = {k: _map_tree(tensor, v) for k, v in enc.items() if k != "layers"}
+        ported["encoder"]["layers"] = _unstack(_map_tree(tensor, enc["layers"]),
+                                               cfg.encoder_layers)
     return ported
 
 
 def lm_params_from_numpy(cfg: ModelConfig, params: dict, *, device) -> Transformer:
-    """A port ``Transformer`` (dense or MoE) holding the weights of a JAX
+    """A port ``Transformer`` (any family) holding the weights of a JAX
     ``init_model`` pytree.
 
     ``params`` has numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``)
-    and the JAX layout: the layer stack carries a leading ``num_layers``
-    axis, which is split into one module per layer.  Weights are stored in
+    and the JAX layout: each layer stack (``layers``, ``cross``,
+    ``encoder.layers``) carries a leading layer axis, which is split into
+    one module per layer.  Weights are stored in
     ``cfg.param_dtype`` on ``device``.
     """
     dev = resolve_device(device)

@@ -7,7 +7,7 @@
 //     o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,g,:] * D^-0.5) v[b,j,g,:],
 //
 // g = h / (H / KV) (grouped-query attention by index: no repeated K/V copy),
-// over keys j < S, and j <= i when causal.  The softmax is the online one of
+// over keys j < S_kv, and j <= i when causal.  The softmax is the online one of
 // the TPU kernel: a running max m, a running sum l and the output accumulator
 // are carried in float32 over the key tiles, masked scores are -1e30 (so a
 // fully masked row never forms -inf - -inf), and the output is
@@ -17,10 +17,12 @@
 // lse stores nothing more than the output.
 //
 // Layout.  q and o are read and written as (B, S, H, D), k and v as
-// (B, S, KV, D), through element strides for batch, sequence and head (the
+// (B, S_kv, KV, D), through element strides for batch, sequence and head (the
 // last dimension is contiguous): the model's projections need no transposed
-// copies.  Query rows and key rows at or past S are masked here; nothing is
-// padded.  Every offset is 64-bit.
+// copies.  A non-causal call takes a key length S_kv of its own
+// (cross-attention); a causal one has S_kv = S.  Query rows at or past S and
+// key rows at or past S_kv are masked here; nothing is padded.  Every offset
+// is 64-bit.
 //
 // Translation.  The TPU kernel runs one grid step per (batch*head, q-block)
 // and walks K/V held whole in VMEM with a fori_loop.  Here one CTA owns one
@@ -71,6 +73,7 @@ struct Params {
     long long v_sb, v_ss, v_sh;
     long long o_sb, o_ss, o_sh;
     int seq_len;
+    int kv_len;   // keys; equal to seq_len when causal
     int group;    // H / KV
     float scale;  // D^-0.5
     int causal;
@@ -181,12 +184,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(const Params p)
     const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + (h / p.group) * p.k_sh;
     const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + (h / p.group) * p.v_sh;
 
-    const int n_kv_all = (S + BKV - 1) / BKV;
+    const int SK = p.kv_len;
+    const int n_kv_all = (SK + BKV - 1) / BKV;
     const int n_kv = p.causal ? min(n_kv_all, (q0 + BQ - 1) / BKV + 1) : n_kv_all;
 
     load_tile<D>(sQ, qg, p.q_ss, S - q0, tid);
-    load_tile<D>(sK, kg, p.k_ss, S, tid);
-    load_tile<D>(sV, vg, p.v_ss, S, tid);
+    load_tile<D>(sK, kg, p.k_ss, SK, tid);
+    load_tile<D>(sV, vg, p.v_ss, SK, tid);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -215,8 +219,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(const Params p)
         if (j + 1 < n_kv) {
             const int nxt = (j + 1) & 1;
             const long long k1 = static_cast<long long>(j + 1) * BKV;
-            load_tile<D>(sK + nxt * BKV * LDS, kg + k1 * p.k_ss, p.k_ss, S - (j + 1) * BKV, tid);
-            load_tile<D>(sV + nxt * BKV * LDS, vg + k1 * p.v_ss, p.v_ss, S - (j + 1) * BKV, tid);
+            load_tile<D>(sK + nxt * BKV * LDS, kg + k1 * p.k_ss, p.k_ss, SK - (j + 1) * BKV, tid);
+            load_tile<D>(sV + nxt * BKV * LDS, vg + k1 * p.v_ss, p.v_ss, SK - (j + 1) * BKV, tid);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -241,9 +245,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(const Params p)
             }
         }
 
-        // Scale into the exp2 domain; mask keys past S and, on the diagonal, above it.
+        // Scale into the exp2 domain; mask keys past S_kv and, on the diagonal, above it.
         const int kv0 = j * BKV;
-        const bool need_mask = (p.causal && kv0 + BKV - 1 > q0) || kv0 + BKV > S;
+        const bool need_mask = (p.causal && kv0 + BKV - 1 > q0) || kv0 + BKV > SK;
         float tmax[2] = {NEG_INF, NEG_INF};
 #pragma unroll
         for (int n = 0; n < NT_S; ++n) {
@@ -253,7 +257,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(const Params p)
                 if (need_mask) {
                     const int key = kv0 + n * 8 + (lane & 3) * 2 + (e & 1);
                     const int row = row0 + (e >> 1) * 8;
-                    if (key >= S || (p.causal && key > row)) x = NEG_INF;
+                    if (key >= SK || (p.causal && key > row)) x = NEG_INF;
                 }
                 s[n][e] = x;
                 tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
@@ -362,7 +366,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const Params p
     }
     float m = NEG_INF, l = 0.f;
 
-    const int n_kv_all = (S + F_BKV - 1) / F_BKV;
+    const int SK = p.kv_len;
+    const int n_kv_all = (SK + F_BKV - 1) / F_BKV;
     const int n_kv = p.causal ? min(n_kv_all, (q0 + F_BQ - 1) / F_BKV + 1) : n_kv_all;
     constexpr int CHUNKS = D / 4;  // float4 per row
     constexpr int LOADS = F_BKV * CHUNKS / F_THREADS;
@@ -376,7 +381,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const Params p
             const int r = c / CHUNKS;
             const int col = (c % CHUNKS) * 4;
             float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-            if (kv0 + r < S) {
+            if (kv0 + r < SK) {
                 const long long key = kv0 + r;
                 kx = *reinterpret_cast<const float4*>(kg + key * p.k_ss + col);
                 vx = *reinterpret_cast<const float4*>(vg + key * p.v_ss + col);
@@ -397,7 +402,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const Params p
             part += __shfl_xor_sync(FULL, part, 2);
             const int key = kv0 + t;
             float x = part * p.scale;
-            if (key >= S || (p.causal && key > row)) x = NEG_INF;
+            if (key >= SK || (p.causal && key > row)) x = NEG_INF;
             sc[t] = x;
             tmax = fmaxf(tmax, x);
         }
@@ -456,14 +461,16 @@ extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = queued).
 // strides: 12 element strides, (batch, sequence, head) for q, k, v and o.
+// kv_len: the keys' sequence length; a causal call must pass seq_len.
 // lse: null, or a contiguous float32 (batch, num_heads, seq_len) output that
 // takes each row's log-sum-exp (natural log) of the D^-0.5-scaled scores.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                           const long long* strides, int batch, int seq_len, int num_heads,
-                           int num_kv_heads, int head_dim, int causal, int is_bf16,
-                           void* stream)
+                           const long long* strides, int batch, int seq_len, int kv_len,
+                           int num_heads, int num_kv_heads, int head_dim, int causal,
+                           int is_bf16, void* stream)
 {
-    if (batch < 1 || batch > 65535 || seq_len < 1 || num_heads < 1 || num_heads > 65535 ||
+    if (batch < 1 || batch > 65535 || seq_len < 1 || kv_len < 1 ||
+        (causal && kv_len != seq_len) || num_heads < 1 || num_heads > 65535 ||
         num_kv_heads < 1 || num_heads % num_kv_heads != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     Params p;
@@ -477,6 +484,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
     p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
     p.seq_len = seq_len;
+    p.kv_len = kv_len;
     p.group = num_heads / num_kv_heads;
     p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(head_dim)));
     p.causal = causal ? 1 : 0;

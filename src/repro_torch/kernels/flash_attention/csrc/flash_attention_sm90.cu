@@ -9,12 +9,14 @@
 //     o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,g,:] * D^-0.5) v[b,j,g,:],
 //
 // g = h / (H / KV) (grouped-query attention by index, no repeated K/V), over
-// keys j < S, and j <= i when causal, with the TPU kernel's online softmax: a
+// keys j < S_kv, and j <= i when causal, with the TPU kernel's online softmax: a
 // running max m, a running sum l and a float32 accumulator carried over the
 // key tiles, masked scores at the finite -1e30, probabilities rounded to bf16
 // before the second product (as the JAX blocked path rounds them), and the
 // output acc / max(l, 1e-30) stored in bf16.  q and o are (B, S, H, D), k and v
-// (B, S, KV, D), all read through strides (the last dimension contiguous).
+// (B, S_kv, KV, D), all read through strides (the last dimension contiguous).
+// A non-causal call takes a key length of its own (cross-attention: S queries
+// against an encoder's S_kv keys); a causal one has S_kv = S.
 // When the caller passes an lse buffer, each row's log-sum-exp of the scaled
 // scores, m + log(max(l, 1e-30)) in natural-log units, is stored there as
 // float32 (B, H, S): the training path's recomputing backward reads it.  A null
@@ -36,7 +38,7 @@
 //   the consumers' eight warps).  The tensor maps (built on the host, passed
 //   as __grid_constant__) cover the 4-D strided (B, S, heads, D) layout with a
 //   128-byte swizzle: a tile is D/64 boxes of 64 columns x 128 rows.  A box
-//   clips at the sequence edge and fills with zeros, so K/V rows past S are
+//   clips at the sequence edge and fills with zeros, so K/V rows past S_kv are
 //   zeros, never uninitialised memory.
 // * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
 //   (K-major).  Its float32 accumulator layout is, once packed to bf16, the
@@ -85,6 +87,7 @@ struct Params {
     float* lse;  // (B, H, S) row log-sum-exp of the scaled scores; null: not stored
     long long o_sb, o_ss, o_sh;  // element strides of o for batch, sequence and head
     int seq_len;
+    int kv_len;  // keys; equal to seq_len when causal
     int num_heads;
     int group;  // H / KV
     int batch;
@@ -302,19 +305,19 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
 }
 
 // The online softmax of one tile's scores in this thread's rows row0 and
-// row0 + 8: mask keys past S and, when causal, above the diagonal (only when
+// row0 + 8: mask keys past S_kv and, when causal, above the diagonal (only when
 // `mask`), update m and l, set alpha to the factor the output must take, and
 // leave P = exp2(S * scale_log2 - m) in sc.
 __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], float scale_log2, bool mask,
-                                               int key0, int row0, int seq_len, bool causal)
+                                               int key0, int row0, int kv_len, bool causal)
 {
     if (mask) {
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
             const int key = key0 + (i >> 2) * 8 + (i & 1);
             const int row = row0 + ((i >> 1) & 1) * 8;
-            if (key >= seq_len || (causal && key > row)) sc[i] = NEG_INF;
+            if (key >= kv_len || (causal && key > row)) sc[i] = NEG_INF;
         }
     }
     float tmax[2] = {NEG_INF, NEG_INF};
@@ -404,7 +407,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int h = bh % p.num_heads;
     const int q0 = qt * BM;
     // BM == BN, so the causal diagonal of query tile qt is key tile qt.
-    const int n_kv = p.causal ? qt + 1 : (p.seq_len + BN - 1) / BN;
+    const int n_kv = p.causal ? qt + 1 : (p.kv_len + BN - 1) / BN;
 
     const int tid = threadIdx.x;
     if (tid == 0) {
@@ -457,7 +460,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // This thread's rows of the wgmma accumulators: row0 and row0 + 8.
         const int row0 = q0 + 64 * g + 16 * (warp % 4) + (lane >> 2);
         const int key_lane = (lane & 3) * 2;
-        const bool last_tile_masked = causal || S % BN != 0;
+        const bool last_tile_masked = causal || p.kv_len % BN != 0;
         const uint32_t q_rows = sQ + g * 64 * 128;  // 64 rows of 128 bytes into each box
 
         float o[D / 2];
@@ -482,7 +485,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         reg_fence(sc);
         release(k_empty, lane);
         online_softmax(sc, m, l, alpha, scale_log2, last_tile_masked && n_kv == 1, key_lane, row0,
-                       S, causal);
+                       p.kv_len, causal);
         pack_p(pa, sc);
         // Tile j - 1's probabilities meet V, then tile j's scores are computed;
         // the other consumer's products run during this one's softmax.
@@ -508,7 +511,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             reg_fence(sc);
             release(k_empty + 8 * s, lane);
             online_softmax(sc, m, l, alpha, scale_log2, last_tile_masked && j == n_kv - 1,
-                           j * BN + key_lane, row0, S, causal);
+                           j * BN + key_lane, row0, p.kv_len, causal);
             pack_p(pa, sc);
         }
         // The last tile's probabilities meet V.
@@ -620,14 +623,17 @@ extern "C" {
 // Launches on `stream`; returns 0 when queued, a cudaError_t, or
 // -1000 - CUresult when a tensor map could not be encoded.
 // strides: 12 element strides, (batch, sequence, head) for q, k, v and o.
+// kv_len: the keys' sequence length; a causal call must pass seq_len.
 // lse: null, or a contiguous float32 (batch, num_heads, seq_len) output that
 // takes each row's log-sum-exp (natural log) of the D^-0.5-scaled scores.
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                                const long long* strides, int batch, int seq_len, int num_heads,
-                                int num_kv_heads, int head_dim, int causal, void* stream)
+                                const long long* strides, int batch, int seq_len, int kv_len,
+                                int num_heads, int num_kv_heads, int head_dim, int causal,
+                                void* stream)
 {
-    if (batch < 1 || seq_len < 1 || num_heads < 1 || num_kv_heads < 1 ||
-        num_heads % num_kv_heads != 0 || (head_dim != 64 && head_dim != 128))
+    if (batch < 1 || seq_len < 1 || kv_len < 1 || (causal && kv_len != seq_len) ||
+        num_heads < 1 || num_kv_heads < 1 || num_heads % num_kv_heads != 0 ||
+        (head_dim != 64 && head_dim != 128))
         return static_cast<int>(cudaErrorInvalidValue);
     const long long n_qtiles = (seq_len + BM - 1) / BM;
     const long long grid = n_qtiles * batch * num_heads;
@@ -639,10 +645,10 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v, voi
     CUresult res = make_map(encode, &tq, q, batch, seq_len, num_heads, head_dim, strides[0],
                             strides[1], strides[2]);
     if (res == CUDA_SUCCESS)
-        res = make_map(encode, &tk, k, batch, seq_len, num_kv_heads, head_dim, strides[3],
+        res = make_map(encode, &tk, k, batch, kv_len, num_kv_heads, head_dim, strides[3],
                        strides[4], strides[5]);
     if (res == CUDA_SUCCESS)
-        res = make_map(encode, &tv, v, batch, seq_len, num_kv_heads, head_dim, strides[6],
+        res = make_map(encode, &tv, v, batch, kv_len, num_kv_heads, head_dim, strides[6],
                        strides[7], strides[8]);
     if (res != CUDA_SUCCESS) return ENCODE_FAILED * 1000 - static_cast<int>(res);
 
@@ -653,6 +659,7 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v, voi
     p.o_ss = strides[10];
     p.o_sh = strides[11];
     p.seq_len = seq_len;
+    p.kv_len = kv_len;
     p.num_heads = num_heads;
     p.group = num_heads / num_kv_heads;
     p.batch = batch;

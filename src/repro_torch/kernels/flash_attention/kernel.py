@@ -78,18 +78,26 @@ def variant_for(dtype: torch.dtype, head_dim: int) -> str:
     raise TypeError(f"dtype {dtype}; the kernels take float32 or bfloat16")
 
 
-def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """The layout both paths take: q (B, S, H, D), k and v (B, S, KV, D), one dtype."""
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool) -> None:
+    """The layout both paths take: q (B, S, H, D), k and v (B, S_kv, KV, D), one
+    dtype.  A non-causal call may have S_kv != S (cross-attention, S_kv >= 1);
+    a causal one needs S_kv = S."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
-            f"q, k, v must be (B, S, H, D) and (B, S, KV, D); got shapes {tuple(q.shape)}, "
+            f"q, k, v must be (B, S, H, D) and (B, S_kv, KV, D); got shapes {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, s, h, d = q.shape
-    if tuple(k.shape) != tuple(v.shape) or (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d):
+    skv = k.shape[1]
+    if tuple(k.shape) != tuple(v.shape) or (k.shape[0], k.shape[3]) != (b, d):
         raise ValueError(
-            f"k {tuple(k.shape)} and v {tuple(v.shape)} must be (B={b}, S={s}, KV, D={d})"
+            f"k {tuple(k.shape)} and v {tuple(v.shape)} must be (B={b}, S_kv, KV, D={d})"
         )
+    if causal and skv != s:
+        raise ValueError(f"causal attention: k {tuple(k.shape)} and v must be (B={b}, S={s}, "
+                         f"KV, D={d}), as many keys as queries")
+    if skv < 1 and s > 0:
+        raise ValueError("attention over no keys: S_kv = 0")
     kvh = k.shape[2]
     if kvh < 1 or h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} KV heads")
@@ -109,7 +117,7 @@ def _library(variant: str) -> tuple[ctypes.CDLL, str]:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         flags = [i] if name == "flash_attention" else []
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, *flags, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, *flags, p]
         fn.restype = ctypes.c_int
         err_string = getattr(lib, f"{name}_error_string")
         err_string.argtypes = [ctypes.c_int]
@@ -122,6 +130,7 @@ def _launch(q, k, v, out, *, causal: bool, variant: str, lse: torch.Tensor | Non
     ``lse``, if given, is a contiguous float32 ``(B, H, S)`` tensor that takes
     each row's log-sum-exp."""
     b, s, h, d = q.shape
+    skv = k.shape[1]
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
@@ -130,7 +139,8 @@ def _launch(q, k, v, out, *, causal: bool, variant: str, lse: torch.Tensor | Non
     with torch.cuda.device(q.device):
         err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, s, h, k.shape[2], d, int(causal), *flags,
+            None if lse is None else lse.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, s,
+            skv, h, k.shape[2], d, int(causal), *flags,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -154,7 +164,8 @@ def flash_attention_cuda(
     tensor (the kernel stores it beside the output; without ``return_lse`` it
     stores nothing more).
 
-    q is ``(B, S, H, D)``, k and v ``(B, S, KV, D)``, all float32 or all
+    q is ``(B, S, H, D)``, k and v ``(B, S_kv, KV, D)`` (S_kv = S when
+    causal; any S_kv >= 1 otherwise), all float32 or all
     bfloat16 on one CUDA device, with a contiguous last dimension, the
     other strides multiples of 16 bytes and 16-byte aligned data.  The
     kernel is ``variant_for(dtype, D)``; ``variant="mma"`` asks for the
@@ -171,7 +182,7 @@ def flash_attention_cuda(
             )
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    check_inputs(q, k, v)
+    check_inputs(q, k, v, causal=causal)
     b, s, h, d = q.shape
     routed = variant_for(q.dtype, d)
     if variant is None:
@@ -180,7 +191,7 @@ def flash_attention_cuda(
         raise ValueError(f"variant {variant!r} does not take {q.dtype} at head_dim {d}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}; the kernels are built for {HEAD_DIMS}")
-    if b > MAX_GRID_YZ or h > MAX_GRID_YZ or s >= 2**31:
+    if b > MAX_GRID_YZ or h > MAX_GRID_YZ or s >= 2**31 or k.shape[1] >= 2**31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
     align = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -1,7 +1,8 @@
 """Flash attention over the model's layout, dispatched by device.
 
 ``flash_attention(q, k, v, causal=...)`` takes the JAX wrapper's layout,
-q ``(B, S, H, D)`` and k/v ``(B, S, KV, D)``, and returns ``(B, S, H, D)`` in
+q ``(B, S, H, D)`` and k/v ``(B, S_kv, KV, D)`` (S_kv = S when causal; a
+non-causal call, cross-attention, may take any S_kv >= 1), and returns ``(B, S, H, D)`` in
 q's dtype, with ``return_lse`` also the float32 ``(B, H, S)`` row
 log-sum-exp.  CUDA tensors launch a hand-written kernel (``kernel.py``),
 which reads the layout through strides, indexes KV heads for grouped-query
@@ -36,13 +37,13 @@ def flash_attention_plain(
     """The plain version over the model's layout, on any device; with
     ``return_lse`` also the float32 ``(B, H, S)`` row log-sum-exp."""
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    skv, kvh = k.shape[1], k.shape[2]
     if kvh != h:
         k = k.repeat_interleave(h // kvh, dim=2)
         v = v.repeat_interleave(h // kvh, dim=2)
     qf = q.transpose(1, 2).reshape(b * h, s, d)
-    kf = k.transpose(1, 2).reshape(b * h, s, d)
-    vf = v.transpose(1, 2).reshape(b * h, s, d)
+    kf = k.transpose(1, 2).reshape(b * h, skv, d)
+    vf = v.transpose(1, 2).reshape(b * h, skv, d)
     out = attention_ref(qf, kf, vf, causal=causal, q_chunk=q_chunk, return_lse=return_lse)
     if return_lse:
         out, lse = out
@@ -54,12 +55,12 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     return_lse: bool = False,
 ):
-    """Attention forward; ``(B, S, H, D)`` x ``(B, S, KV, D)`` -> ``(B, S, H, D)``,
+    """Attention forward; ``(B, S, H, D)`` x ``(B, S_kv, KV, D)`` -> ``(B, S, H, D)``,
     and with ``return_lse`` the float32 ``(B, H, S)`` row log-sum-exp of the
     scaled scores (natural log), which the recomputing backward reads."""
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
-    check_inputs(q, k, v)
+    check_inputs(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal, return_lse=return_lse)

@@ -25,11 +25,14 @@ def attention_ref(
     q_chunk: int | None = None,
     return_lse: bool = False,
 ):
-    """q/k/v: (BH, S, D) -> (BH, S, D) in q's dtype, with a float32 softmax.
-    With ``return_lse`` also each row's float32 log-sum-exp of the scaled,
-    masked scores, (BH, S)."""
+    """q (BH, S, D), k and v (BH, S_kv, D) -> (BH, S, D) in q's dtype, with a
+    float32 softmax.  S_kv may differ from S only when not causal
+    (cross-attention).  With ``return_lse`` also each row's float32
+    log-sum-exp of the scaled, masked scores, (BH, S)."""
     bh, s, d = q.shape
     skv = k.shape[1]
+    if causal and skv != s:
+        raise ValueError(f"causal attention needs as many keys as queries: S={s}, S_kv={skv}")
     chunk = s if q_chunk is None else q_chunk
     if chunk < 1:
         raise ValueError(f"q_chunk={q_chunk} must be positive")

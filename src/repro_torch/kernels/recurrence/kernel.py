@@ -1,0 +1,169 @@
+"""Wrappers of the hand-written CUDA recurrence kernels (``csrc/recurrence.cu``).
+
+``wkv6_scan_cuda`` and ``ssd_scan_cuda`` each launch one kernel that runs a
+whole sequence's recurrence on the card: the WKV-6 state update of RWKV-6
+and the Mamba2 state update.  They replace no Pallas kernel: the JAX package
+runs both with ``lax.scan``, one compiled loop on the device, and these are
+the port's counterpart of that loop (the source's note says what bounds
+them).
+
+They take CUDA tensors only, float32, with a contiguous last dimension
+(any other strides), and check device, dtype and shape, raising on
+anything the kernels do not take; there is no fallback.  CPU tensors go to
+the plain versions (``ref.py``) one level up, in ``ops``.  Neither has a
+backward: inputs that require grad under grad mode are refused.
+
+``wkv6_scan_cuda.launches`` and ``ssd_scan_cuda.launches`` count each
+kernel's launches in this process; ``reset_launch_counts`` sets both to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["HEAD_DIM", "SSD_STATE", "check_ssd_inputs", "check_wkv_inputs", "reset_launch_counts",
+           "ssd_scan_cuda", "wkv6_scan_cuda"]
+
+HEAD_DIM = 64  # rwkv's WKV head dim; mamba's head dim
+SSD_STATE = 64  # the Mamba2 state size the SSD kernel is built for
+MAX_BATCH = 65_535  # gridDim.y
+
+
+def check_wkv_inputs(r, k, v, w, u) -> None:
+    """r, k, v, w (B, S, H, 64) and u (H, 64), all float32."""
+    if r.dim() != 4 or r.shape[-1] != HEAD_DIM:
+        raise ValueError(f"r must be (B, S, H, {HEAD_DIM}); got {tuple(r.shape)}")
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} differs from r {tuple(r.shape)}")
+    if tuple(u.shape) != (r.shape[2], HEAD_DIM):
+        raise ValueError(f"u must be (H={r.shape[2]}, {HEAD_DIM}); got {tuple(u.shape)}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the scan takes float32")
+
+
+def check_ssd_inputs(decay, dtx, bm, cm) -> None:
+    """decay (B, S, H), dtx (B, S, H, 64), bm and cm (B, S, N), all float32."""
+    if dtx.dim() != 4 or dtx.shape[-1] != HEAD_DIM:
+        raise ValueError(f"dtx must be (B, S, H, {HEAD_DIM}); got {tuple(dtx.shape)}")
+    bsz, s, h, _ = dtx.shape
+    if tuple(decay.shape) != (bsz, s, h):
+        raise ValueError(f"decay must be (B={bsz}, S={s}, H={h}); got {tuple(decay.shape)}")
+    for name, t in (("bm", bm), ("cm", cm)):
+        if t.dim() != 3 or tuple(t.shape[:2]) != (bsz, s):
+            raise ValueError(f"{name} must be (B={bsz}, S={s}, N); got {tuple(t.shape)}")
+    if bm.shape != cm.shape:
+        raise ValueError(f"bm {tuple(bm.shape)} and cm {tuple(cm.shape)} differ")
+    for name, t in (("decay", decay), ("dtx", dtx), ("bm", bm), ("cm", cm)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the scan takes float32")
+
+
+def _check_cuda(kernel: str, tensors: dict) -> torch.device:
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel} needs CUDA tensors, got {name} on {t.device}; CPU "
+                             "tensors take the plain version (kernels.recurrence.ops)")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the others on {dev}")
+        if t.dim() and t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name} must have a contiguous last dimension; strides {t.stride()}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        raise NotImplementedError(f"{kernel} has no backward: the recurrence kernels run "
+                                  "the forward pass only (ROADMAP.md Queue 1 item 13)")
+    return dev
+
+
+def _library():
+    lib = build.load("recurrence")
+    if lib.wkv6_scan_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.wkv6_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.wkv6_scan_launch.restype = i
+        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.ssd_scan_launch.restype = i
+        lib.recurrence_error_string.argtypes = [i]
+        lib.recurrence_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err: int, kernel: str) -> None:
+    if err != 0:
+        msg = lib.recurrence_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err} ({msg})")
+
+
+def _strides(*groups) -> ctypes.Array:
+    """The element strides of each ``(tensors, dims)`` group's tensors, their
+    first ``dims`` each, as one int64 array."""
+    flat = [st for tensors, dims in groups for t in tensors for st in t.stride()[:dims]]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def wkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor) -> torch.Tensor:
+    """Launch the WKV-6 scan; returns y (B, S, H, 64) float32, contiguous.
+    r, k, v, w (B, S, H, 64) and u (H, 64), float32 on one CUDA device; the
+    state starts at zero.  Runs on the current stream, not synchronised."""
+    dev = _check_cuda("wkv6_scan_cuda", dict(r=r, k=k, v=v, w=w, u=u))
+    check_wkv_inputs(r, k, v, w, u)
+    b, s, h, _ = r.shape
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
+    y = torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y
+    u = u.contiguous()
+    lib = _library()
+    strides = _strides(((r, k, v, w), 3))
+    with torch.cuda.device(dev):
+        err = lib.wkv6_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), y.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), b, s, h,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "wkv6_scan")
+    wkv6_scan_cuda.launches += 1
+    return y
+
+
+def ssd_scan_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
+                  cm: torch.Tensor) -> torch.Tensor:
+    """Launch the Mamba2 state scan; returns y (B, S, H, 64) float32,
+    contiguous.  decay (B, S, H), dtx (B, S, H, 64), bm and cm (B, S, 64),
+    float32 on one CUDA device; the state starts at zero.  A state size N
+    other than 64 raises ``ValueError``.  Runs on the current stream."""
+    dev = _check_cuda("ssd_scan_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm))
+    check_ssd_inputs(decay, dtx, bm, cm)
+    b, s, h, _ = dtx.shape
+    if bm.shape[-1] != SSD_STATE:
+        raise ValueError(f"state size {bm.shape[-1]}; the SSD kernel is built for {SSD_STATE}")
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
+    y = torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y
+    lib = _library()
+    strides = _strides(((decay, dtx), 3), ((bm, cm), 2))
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_launch(
+            decay.data_ptr(), dtx.data_ptr(), bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), b, s, h, SSD_STATE,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "ssd_scan")
+    ssd_scan_cuda.launches += 1
+    return y
+
+
+def reset_launch_counts() -> None:
+    """Set both kernels' launch counts to 0."""
+    wkv6_scan_cuda.launches = 0
+    ssd_scan_cuda.launches = 0
+
+
+reset_launch_counts()

@@ -1,9 +1,11 @@
-"""Serving launcher: batched continuous-batching decode (port of
-``repro.launch.serve``; the dense family).
+"""Serving launcher: batched continuous-batching decode on any arch (port of
+``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch internlm2-1.8b --reduced --requests 8``
 runs on the GPU; ``--device cpu`` runs on the CPU.  Weights are random,
-from ``init_model(seed=0)``.
+from ``init_model(seed=0)``.  As JAX's launcher does, it refuses the
+encoder-decoder family (whisper-base), whose requests need audio frames
+that a token prompt does not carry.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(f"{cfg.name} serving requires audio frames; a token prompt carries "
+                         "none (decode it through make_decode_fn and fill_cross_cache)")
     model = init_model(cfg, seed=0, device=args.device)
     srv = BatchServer(cfg, model, ServeConfig(max_slots=args.slots, max_len=args.max_len),
                       device=args.device)

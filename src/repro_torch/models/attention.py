@@ -208,7 +208,8 @@ class _BlockedAttention(torch.autograd.Function):
 
 
 def blocked_attention(q, k, v, causal: bool, block_q: int, block_kv: int) -> torch.Tensor:
-    """Flash attention, differentiable.  q (B, S, H, D), k and v (B, S, KV, D).
+    """Flash attention, differentiable.  q (B, S, H, D), k and v (B, S_kv, KV, D)
+    (S_kv = S when causal).
 
     Without a gradient to take (inference mode, or no input that requires
     grad) it is ``ops.flash_attention`` itself, so the prefill's launches
@@ -221,10 +222,18 @@ def blocked_attention(q, k, v, causal: bool, block_q: int, block_kv: int) -> tor
 
 
 def attention(params, cfg, x: torch.Tensor, *, causal: bool = True,
+              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None, rope: bool = True,
               impl: str | None = None) -> torch.Tensor:
     """Full-sequence attention (train / prefill).  x: (B, S, d_model) ->
-    (B, S, d_model); the caller adds the residual."""
-    q, k, v = project_qkv(params, cfg, x)
+    (B, S, d_model); the caller adds the residual.
+
+    ``kv_override`` supplies k and v computed elsewhere, (B, S_kv, KV, hd)
+    each (cross-attention, from ``compute_kv`` over the encoder's states),
+    in place of x's.  ``rope=False`` rotates nothing.  The ``"auto"`` rule
+    looks at the longer of S and S_kv, as JAX's does."""
+    q, k, v = project_qkv(params, cfg, x, rope=rope)
+    if kv_override is not None:
+        k, v = kv_override
     impl = impl or cfg.attention_impl
     if impl == "auto":
         impl = "blocked" if max(q.shape[1], k.shape[1]) > 2048 else "dense"

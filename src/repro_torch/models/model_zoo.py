@@ -1,9 +1,11 @@
-"""Model zoo front end: step functions per architecture (port of
-``repro.models.model_zoo``: the loss, train, prefill and decode steps).
+"""Model zoo front end: step functions and input specs per architecture
+(port of ``repro.models.model_zoo``).
 
-Not in this slice (ROADMAP.md, Queue 1 item 10): ``input_specs``.  JAX's
+``input_specs`` gives tensors on the ``meta`` device, PyTorch's shapes
+without storage, where JAX gives ``ShapeDtypeStruct``s.  JAX's
 ``_ubatch_constraint`` is a sharding hint, a no-op outside a mesh, and is
-not ported.
+not ported.  The loss and train steps refuse the RWKV, hybrid,
+encoder-decoder and frontend families (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     Transformer,
-    check_supported,
+    check_trainable,
     cross_entropy_loss,
     decode_step,
     forward,
@@ -25,13 +27,16 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.tree import param_tree, tree_leaves, tree_map
 
-__all__ = ["init_decode_state", "init_model", "make_decode_fn", "make_loss_fn",
+__all__ = ["init_decode_state", "init_model", "input_specs", "make_decode_fn", "make_loss_fn",
            "make_prefill_fn", "make_train_step"]
 
 
 def make_loss_fn(cfg: ModelConfig):
     """``loss_fn(params, batch) -> float32 loss``: ``cross_entropy_loss`` of
-    the logits against ``batch["labels"]``; ``params`` is a model or a tree."""
+    the logits against ``batch["labels"]``; ``params`` is a model or a tree.
+    Refuses the families that do not train yet (``check_trainable``)."""
+    check_trainable(cfg)
+
     def loss_fn(params, batch):
         logits = forward_params(param_tree(params), cfg, batch)
         return cross_entropy_loss(logits, batch["labels"])
@@ -66,7 +71,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int =
     (one host sync a step), so a step that raises leaves the state as it was
     and can be replayed.
     """
-    check_supported(cfg)
+    check_trainable(cfg)
     dev = resolve_device(device)
     loss_fn = make_loss_fn(cfg)
     if num_microbatches < 1:
@@ -126,11 +131,12 @@ def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int =
 def make_prefill_fn(cfg: ModelConfig, *, device="cuda"):
     """``prefill(model, batch) -> (B, padded_vocab)`` next-token logits.
 
-    Runs ``forward`` under ``torch.inference_mode`` on ``device`` (default
+    ``batch`` as ``forward`` takes it: ``tokens``, with ``frames`` for the
+    encoder-decoder family and optionally ``prefix_embeds`` for the vision
+    frontend.  Runs ``forward`` under ``torch.inference_mode`` on ``device`` (default
     the GPU; raises without one) and returns a copy of the last position's
     logits, so the full ``(B, S, padded_vocab)`` logits are freed on return.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def prefill(model: Transformer, batch: dict) -> torch.Tensor:
@@ -146,7 +152,6 @@ def make_decode_fn(cfg: ModelConfig, *, device="cuda"):
     """``serve_step(model, tokens, state) -> (logits (B, padded_vocab), state)``:
     ``decode_step`` under ``torch.inference_mode`` on ``device`` (default
     the GPU; raises without one).  The state is updated in place."""
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def serve_step(model: Transformer, tokens, state: dict):
@@ -156,3 +161,39 @@ def make_decode_fn(cfg: ModelConfig, *, device="cuda"):
             return decode_step(model, cfg, tokens, state)
 
     return serve_step
+
+
+def input_specs(cfg: ModelConfig, shape_spec) -> dict:
+    """Every model input of (arch x shape) as a tensor on the ``meta`` device
+    (shape and dtype, no storage), as JAX's ``input_specs`` gives them.
+
+    kind "train" / "prefill": ``tokens`` (and ``labels`` for train) int32;
+    the encoder-decoder family takes ``frames`` (B, S, d) bf16 and
+    ``max_target_len`` tokens; the vision frontend ``prefix_embeds`` (B, P,
+    d) bf16 with P = min(num_prefix_embeds, S // 2) and S - P tokens.  kind
+    "decode": one token per sequence and ``init_decode_state``'s state of
+    length ``seq_len``, on ``meta``."""
+    b, s = shape_spec.global_batch, shape_spec.seq_len
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if shape_spec.kind in ("train", "prefill"):
+        train = shape_spec.kind == "train"
+        if cfg.is_encoder_decoder:
+            specs = {"frames": spec((b, s, cfg.d_model), torch.bfloat16),
+                     "tokens": spec((b, cfg.max_target_len), torch.int32)}
+            n_tok = cfg.max_target_len
+        elif cfg.frontend == "vision_stub":
+            p = min(cfg.num_prefix_embeds, s // 2)
+            specs = {"prefix_embeds": spec((b, p, cfg.d_model), torch.bfloat16),
+                     "tokens": spec((b, s - p), torch.int32)}
+            n_tok = s - p
+        else:
+            specs = {"tokens": spec((b, s), torch.int32)}
+            n_tok = s
+        if train:
+            specs["labels"] = spec((b, n_tok), torch.int32)
+        return specs
+    return {"tokens": spec((b,), torch.int32),
+            "state": init_decode_state(cfg, b, s, device="meta")}

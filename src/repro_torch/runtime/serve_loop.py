@@ -24,6 +24,9 @@ from repro_torch.models.model_zoo import init_decode_state, make_decode_fn
 
 __all__ = ["ServeConfig", "BatchServer"]
 
+# Decode-state entries that carry a sequence's history, (layers, slots, ...).
+RECURRENT_STATES = ("wkv", "x_prev_t", "x_prev_c", "h", "conv_buf")
+
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -33,8 +36,8 @@ class ServeConfig:
 
 
 class BatchServer:
-    """Continuous-batching server of one dense model on ``device`` (default
-    the GPU; raises without one)."""
+    """Continuous-batching server of one model of any family on ``device``
+    (default the GPU; raises without one)."""
 
     def __init__(self, cfg, model, serve_cfg: ServeConfig, *,
                  device: str | torch.device = DEFAULT_DEVICE):
@@ -74,10 +77,15 @@ class BatchServer:
                 self._reset_slot(i)
 
     def _reset_slot(self, i: int):
-        """A reused slot restarts at position 0.  Its KV cache entries are
-        overwritten as the new sequence advances and masked by the
-        per-sequence position until then, so they need no clearing."""
+        """A reused slot restarts at position 0 and its recurrent states
+        (RWKV's ``wkv``, ``x_prev_t``, ``x_prev_c``; the hybrid's ``h`` and
+        ``conv_buf``) are zeroed along the slot axis, as JAX's are.  Its KV
+        cache entries are overwritten as the new sequence advances and masked
+        by the per-sequence position until then, so they need no clearing."""
         self.state["pos"][i] = 0
+        for key in RECURRENT_STATES:
+            if key in self.state:
+                self.state[key][:, i] = 0
 
     # --- engine tick ------------------------------------------------------
     def tick(self):

@@ -10,16 +10,21 @@ its meaning on rows whose outputs are smaller than 3e-2.  Inputs are drawn
 with numpy from a seed and handed to both sides.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as jreg
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.models import attention as jattn
+from repro_torch.configs import registry as treg
 from repro_torch.kernels.flash_attention import kernel as tkernel
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.ref import attention_ref, max_row_error
+from repro_torch.models import attention as tattn
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
@@ -147,3 +152,67 @@ def test_variant_for_routes_by_dtype_and_head_dim(dtype, head_dim, variant):
 def test_variant_for_refuses_other_dtypes():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tkernel.variant_for(torch.float16, 128)
+
+
+# Cross-attention: S_q queries against S_kv keys, not causal (whisper's 448
+# decoder positions against its encoder's frames, cut to CPU sizes).
+CROSS_SHAPES = [(448 // 8, 1500 // 8), (1, 1000 // 8), (129, 64), (7, 300), (64, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,skv", CROSS_SHAPES)
+def test_plain_version_takes_a_key_length_of_its_own(s, skv, dtype):
+    """``flash_attention`` and ``attention_ref`` with S_kv != S_q against
+    JAX's ``attention_ref`` (a materialised float32 softmax over every key)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(s + skv)
+    b, h, kvh, d = 2, 4, 2, 32
+    qn = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    kn, vn = (rng.standard_normal((b, skv, kvh, d)).astype(np.float32) for _ in range(2))
+    got = flash_attention(*(torch.from_numpy(x).to(tdt) for x in (qn, kn, vn)), causal=False)
+    assert got.shape == (b, s, h, d) and got.dtype == tdt
+    want = jax_attention_ref(*(jnp.asarray(_head_major(x, h), jdt).astype(jnp.float32)
+                               for x in (qn, kn, vn)), causal=False)
+    want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_to_np(got), want, rtol=tol, atol=tol)
+    assert max_row_error(got, torch.from_numpy(np.ascontiguousarray(want))) <= ROW_TOLS[dtype]
+    ref = attention_ref(*(torch.from_numpy(np.ascontiguousarray(_head_major(x, h))).to(tdt)
+                          .float() for x in (qn, kn, vn)), causal=False, q_chunk=5)
+    np.testing.assert_allclose(ref.numpy().reshape(b, h, s, d).transpose(0, 2, 1, 3), want,
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("impl", ["blocked", "dense"])
+@pytest.mark.parametrize("s,skv", [(12, 17), (56, 187), (1, 5)])
+def test_attention_kv_override_matches_jax(s, skv, impl):
+    """``attention(kv_override=compute_kv(enc), rope=False)``, whisper's
+    cross-attention, against JAX's, float32 at 2e-5; and ``rope=True``
+    with an override rotates q alone, as JAX's does."""
+    jcfg = jreg.reduced_config("whisper-base", dtype=jnp.float32)
+    tcfg = treg.reduced_config("whisper-base", dtype=torch.float32)
+    params = {k: np.array(v) for k, v in jattn.init_attention(jax.random.PRNGKey(s), jcfg).items()}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    rng = np.random.default_rng(skv)
+    x = rng.standard_normal((2, s, jcfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, skv, jcfg.d_model)).astype(np.float32)
+    jkv = jattn.compute_kv(jp, jcfg, jnp.asarray(enc))
+    tkv = tattn.compute_kv(tp, tcfg, torch.from_numpy(enc))
+    for rope in (False, True):
+        want = jattn.attention(jp, jcfg, jnp.asarray(x), causal=False, kv_override=jkv,
+                               rope=rope, impl=impl)
+        got = tattn.attention(tp, tcfg, torch.from_numpy(x), causal=False, kv_override=tkv,
+                              rope=rope, impl=impl)
+        np.testing.assert_allclose(_to_np(got), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_causal_call_with_another_key_length_raises():
+    q = torch.zeros(1, 4, 2, 32)
+    kv = torch.zeros(1, 6, 2, 32)
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        flash_attention(q, kv, kv, causal=True)
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        attention_ref(torch.zeros(2, 4, 32), torch.zeros(2, 6, 32), torch.zeros(2, 6, 32),
+                      causal=True)
+    with pytest.raises(ValueError, match="no keys"):
+        flash_attention(q, kv[:, :0], kv[:, :0], causal=False)

@@ -116,6 +116,7 @@ def test_cuda_sources_and_build_directory():
     assert "mttkrp" in srcs and srcs["mttkrp"].suffix == ".cu"
     assert "flash_attention" in srcs and srcs["flash_attention"].suffix == ".cu"
     assert "flash_attention_sm90" in srcs and srcs["flash_attention_sm90"].suffix == ".cu"
+    assert "recurrence" in srcs and srcs["recurrence"].suffix == ".cu"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.BUILD_DIR.is_relative_to(REPO)
     ignored = (REPO / ".gitignore").read_text().split()
