@@ -200,13 +200,16 @@ while phases 6-8, 13, 16 and 17 keep the card busy.
      flash launches (96 a step), device time by class and model FLOP/s.
  17. the RWKV-6, hybrid, encoder-decoder and VLM families: (a) both
      recurrence kernels (``kernels/recurrence/csrc/recurrence.cu``) against
-     their plain loops over S in {1, 2, 63, 64, 65, 129, 1000}, B in {1, 3},
-     H in {1, 5, 40}, contiguous and strided (1e-4 of each (b, h)'s largest
-     |plain|, two launches bit for bit); (b) zamba2-1.2b and (c) rwkv6-3b at
-     full width and depth: ``make_prefill_fn`` at B = 2, S = 32768 (one
-     warm-up, 3 timed; SSD 38 and flash 6 launches a prefill, WKV 32), the
-     scan kernel at that shape on layer 0's inputs against its plain loop
-     with its time and bound, the kernel path against the plain one at
+     their plain loops over S in {1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+     129, 1000} (around the 32-step chunks' and 16-step sub-chunks' edges),
+     B in {1, 3}, H in {1, 5, 40}, contiguous and strided, then exactly-0,
+     unit and spike decays and views 4 bytes off their buffer (1e-4 of each
+     (b, h)'s largest |plain|, two launches bit for bit); (b) zamba2-1.2b and
+     (c) rwkv6-3b at full width and depth: ``make_prefill_fn`` at B = 2,
+     S = 32768 (one warm-up, 3 timed; SSD 38 and flash 6 launches a
+     prefill, WKV 32), the scan kernel at that shape on layer 0's inputs
+     against its plain loop with its time and bound (bytes, or its 3xTF32
+     products at the TF32 peak), the kernel path against the plain one at
      S = 256, teacher-forced decode of 128 tokens against ``forward`` (for
      rwkv6-3b these two bf16 checks are printed at 32 layers and held at 4),
      each recurrent block in float32, and ``BatchServer`` on
@@ -292,6 +295,7 @@ from repro_torch.reorder import strategies as tstrat  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.data.lm_data import SyntheticLMStream  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkmod  # noqa: E402
+from repro_torch.kernels.recurrence import draws as rdraws  # noqa: E402
 from repro_torch.kernels.recurrence import kernel as rkmod  # noqa: E402
 from repro_torch.kernels.recurrence import ref as rref  # noqa: E402
 from repro_torch.models import rwkv as trwkv  # noqa: E402
@@ -3156,15 +3160,25 @@ SCAN_TOL = 1e-4  # of the largest |plain| of each (b, h): float32 sums in anothe
 # init_model(seed=0)) and printed at 32.
 BLOCK_TOL = 1e-3
 RWKV_HELD_LAYERS = 4
-SCAN_SEQS = (1, 2, 63, 64, 65, 129, 1000)  # the kernels stage 32 steps at a time
+# The chunked kernels cut 32-step chunks into 16-step sub-chunks: lengths at
+# and around both edges, beside PR 23's.
+SCAN_SEQS = (1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 129, 1000)
 SCAN_BATCHES = (1, 3)
 SCAN_HEADS = (1, 5, 40)
-# Float32 operations per state entry and step: WKV-6 2 for y (r_i S_ij summed
-# over i) and 3 for S <- w S + k v; SSD 3 for h <- decay h + dtx b and 2 for
-# y (h c summed over n).  Per step and output column, WKV-6's bonus term
-# v_j sum_i r_i u_i k_i adds 3 (the dot product, shared by the columns) + 2.
-SCAN_FLOPS = {"wkv6": 5, "ssd": 5}
-SCAN_FLOPS_PER_COLUMN = {"wkv6": 5, "ssd": 0}
+# Decay draws beyond the models' (SCAN_DECAY_SHAPES each; rdraws.DECAYS):
+# exact zeros ("strong"), none ("unit"), one near-zero decay among mild ones
+# ("spike").  "misaligned" views start 4 bytes into their buffer.
+SCAN_DECAYS = ("strong", "unit", "spike")
+SCAN_DECAY_SHAPES = ((1, 65, 5), (3, 1000, 40))  # (B, S, H)
+# The chunked kernels' tensor-core work: mma.sync m16n8k8 (2048 TF32 flops)
+# a CTA (one (b, h)) and 32-step chunk, the 3xTF32 split's three products
+# each.  WKV-6: (r P) S_start 128, A's off-diagonal block 16, A V over A's
+# three 16 x 16 lower blocks 48, (k Q)^T V 128: 320 x 3.  SSD: C h^T 128,
+# C B^T's lower blocks 48, (Ls C B^T) X 48, (suf B)^T X 128: 352 x 3.
+SCAN_CHUNK = 32
+SCAN_MMA_PER_CHUNK = {"wkv6": 960, "ssd": 1056}
+MMA_TF32_FLOPS = 2 * 16 * 8 * 8
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # Row 2's training shape (B, S_q, S_kv, H, KV, D, causal) and phase 17's new ones.
 FLASH_NEW_SHAPES = {
     "training shape (phase 16e): B=2 S=4096 H=16 KV=8 D=64 causal": (2, 4096, 4096, 16, 8, 64, True),
@@ -3212,27 +3226,10 @@ def first_call_args(module, name: str, run) -> list:
     return got["args"]
 
 
-def scan_inputs(kind: str, b: int, s: int, h: int, dev, *, strided: bool, seed: int):
-    """Phase 17 (a)'s inputs: contiguous, or strided views of one projection
-    (r, k, v, w; dtx, b, c), as tests/test_torch_recurrence_cuda.py draws them."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    if kind == "wkv6":
-        if strided:
-            fused = torch.randn((b, s, 4 * h * 64 + 32), generator=gen, device=dev)
-            r, k, v, w = (fused[..., i * h * 64:(i + 1) * h * 64].view(b, s, h, 64)
-                          for i in range(4))
-        else:
-            r, k, v, w = (torch.randn((b, s, h, 64), generator=gen, device=dev) for _ in range(4))
-        w = torch.exp(-torch.exp(w.clamp(max=0.5) - 3.0))
-        return r, k, v, w, 0.1 * torch.randn((h, 64), generator=gen, device=dev)
-    if strided:
-        conv = torch.randn((b, s, h * 64 + 128), generator=gen, device=dev)
-        dtx = conv[..., :h * 64].view(b, s, h, 64)
-        bm, cm = conv[..., h * 64:h * 64 + 64], conv[..., h * 64 + 64:]
-    else:
-        dtx = torch.randn((b, s, h, 64), generator=gen, device=dev)
-        bm, cm = (torch.randn((b, s, 64), generator=gen, device=dev) for _ in range(2))
-    return torch.exp(-2.0 * torch.rand((b, s, h), generator=gen, device=dev)), dtx, bm, cm
+def scan_inputs(kind: str, b: int, s: int, h: int, dev, **kw):
+    """Phase 17 (a)'s inputs, drawn as tests/test_torch_recurrence_cuda.py
+    draws them (kernels/recurrence/draws.py)."""
+    return (rdraws.wkv_inputs if kind == "wkv6" else rdraws.ssd_inputs)(b, s, h, dev, **kw)
 
 
 SCANS = {"wkv6": (rkmod.wkv6_scan_cuda, rref.wkv6_scan_ref),
@@ -3245,36 +3242,63 @@ def per_head_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / scale).max())
 
 
+def scan_case_list() -> list[dict]:
+    """Phase 17 (a)'s cases: every (S, B, H) of SCAN_SEQS x SCAN_BATCHES x
+    SCAN_HEADS, contiguous and strided, with the models' decays; then each of
+    SCAN_DECAYS at SCAN_DECAY_SHAPES, contiguous, strided and misaligned."""
+    cases = [dict(s=s, b=b, h=h, strided=strided)
+             for s, b, h, strided in itertools.product(SCAN_SEQS, SCAN_BATCHES, SCAN_HEADS,
+                                                       (False, True))]
+    cases += [dict(s=s, b=b, h=h, strided=lay == "strided", misaligned=lay == "misaligned",
+                   decay=decay)
+              for decay in SCAN_DECAYS for b, s, h in SCAN_DECAY_SHAPES
+              for lay in ("contiguous", "strided", "misaligned")]
+    cases += [dict(s=s, b=b, h=h, strided=False, misaligned=True)
+              for b, s, h in SCAN_DECAY_SHAPES]
+    return cases
+
+
 def scan_cases(dev) -> dict:
-    """Phase 17 (a): both recurrence kernels against their plain versions."""
+    """Phase 17 (a): both recurrence kernels against their plain versions,
+    each case launched twice."""
     worst = {}
+    cases = scan_case_list()
     for kind, (kernel, plain) in SCANS.items():
-        failures, errs = [], []
-        for s, b, h, strided in itertools.product(SCAN_SEQS, SCAN_BATCHES, SCAN_HEADS,
-                                                  (False, True)):
-            args = scan_inputs(kind, b, s, h, dev, strided=strided, seed=s * 7 + h + b)
+        failures, errs, by_regime = [], [], {}
+        for case in cases:
+            case = dict(case)
+            s, b, h = case.pop("s"), case.pop("b"), case.pop("h")
+            args = scan_inputs(kind, b, s, h, dev, seed=s * 7 + h + b, **case)
             got, again = kernel(*args), kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
             err = per_head_error(got, want)
             errs.append(err)
+            regime = (case.get("decay", "model"), "misaligned" if case.get("misaligned") else
+                      "strided" if case["strided"] else "contiguous")
+            by_regime[regime] = max(by_regime.get(regime, 0.0), err)
             if not (err <= SCAN_TOL and torch.equal(got, again) and got.shape == want.shape):
-                failures.append(f"S={s} B={b} H={h} strided={strided}: error {err:.3e}, "
+                failures.append(f"S={s} B={b} H={h} {case}: error {err:.3e}, "
                                 f"repeat equal {torch.equal(got, again)}")
         worst[kind] = max(errs)
         print(f"  {kind} kernel: {len(errs)} cases (S {SCAN_SEQS}, B {SCAN_BATCHES}, H "
-              f"{SCAN_HEADS}, contiguous and strided), max error {max(errs):.3e} of each (b, h)'s "
-              f"largest |plain| (tol {SCAN_TOL:g}), every repeat bit for bit")
+              f"{SCAN_HEADS}, contiguous and strided; decays {SCAN_DECAYS} and misaligned views "
+              f"at (B, S, H) {SCAN_DECAY_SHAPES}), max error {max(errs):.3e} of each (b, h)'s "
+              f"largest |plain| (tol {SCAN_TOL:g}), every repeat bit for bit; worst by (decay, "
+              f"layout): { {f'{d}/{l}': float(f'{e:.3e}') for (d, l), e in by_regime.items()} }")
         check(not failures, f"the {kind} kernel disagrees with its plain version: {failures[:5]}")
     return worst
 
 
 def scan_full_shape(kind: str, args: list, card: str) -> dict:
     """One kernel at the main path's shape (layer 0's inputs) against its plain
-    loop: error, CUDA-event times and the bound."""
+    loop: error, CUDA-event times and the bound, the larger of the bytes
+    (each input read once, y written once) and the kernel's own tensor-core
+    products at the TF32 peak."""
     kernel, plain = SCANS[kind]
     got = kernel(*args)
-    ms = median_ms(lambda: kernel(*args), FLASH_REPS)
+    times = [median_ms(lambda: kernel(*args), FLASH_REPS) for _ in range(2)]
+    ms = float(np.median(times))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = plain(*args)
@@ -3284,18 +3308,19 @@ def scan_full_shape(kind: str, args: list, card: str) -> dict:
     err = per_head_error(got, want)
     max_abs = float((got - want).abs().max())
     b, s, h, hd = got.shape
-    state = args[2].shape[-1] if kind == "ssd" else hd
     nbytes = (sum(a.numel() for a in args) + got.numel()) * 4
-    flops = (SCAN_FLOPS[kind] * state + SCAN_FLOPS_PER_COLUMN[kind]) * b * s * h * hd
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-    bound_by = "operations" if flops / F32_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
-    print(f"  {kind} kernel at B={b} S={s} H={h} (layer 0's inputs): {ms:.3f} ms, plain loop "
-          f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB at "
-          f"3.35 TB/s, {flops:.3e} float32 flops at 67 TFLOP/s), share of bound "
+    flops = SCAN_MMA_PER_CHUNK[kind] * MMA_TF32_FLOPS * b * h * -(-s // SCAN_CHUNK)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / TF32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"  {kind} kernel at B={b} S={s} H={h} (layer 0's inputs): {[round(t, 3) for t in times]} "
+          f"ms (medians of {FLASH_REPS}), plain loop {plain_ms:.1f} ms, bound {bound_ms:.3f} ms by "
+          f"{bound_by} ({nbytes / 1e9:.3f} GB at 3.35 TB/s, {bytes_ms:.3f} ms; {flops:.3e} TF32 "
+          f"flops of its 3xTF32 products at 495 TFLOP/s, {ops_ms:.3f} ms), share of bound "
           f"{bound_ms / ms:.3f}; error {err:.3e} of each (b, h)'s largest |plain| (tol "
           f"{SCAN_TOL:g}), max |kernel - plain| {max_abs:.3e}  [{card}]")
     check(err <= SCAN_TOL, f"the {kind} kernel disagrees with its plain loop at full shape")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+    return dict(ms=ms, times_ms=times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=max_abs, rel_err=err, shape=[b, s, h, hd])
 
 
@@ -3590,8 +3615,8 @@ def scan_entries(families: dict) -> list[dict]:
             replaces=site, replaces_note=what, launches=sum(by_path.values()),
             launches_by_path=by_path, max_abs_err=full["max_abs_err"],
             max_err_per_head=full["rel_err"], cases_max_err=families["scan_cases_max_err"][kind],
-            ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
-            bound_by=full["bound_by"], library_ms=None,
+            ms=full["ms"], times_ms=full["times_ms"], plain_ms=full["plain_ms"],
+            bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
             per=f"one layer's scan, B={b} S={s} H={h} float32, layer 0's inputs of {arch}",
             prefill_ms=fams[arch]["prefill"]["ms"]))
     return out

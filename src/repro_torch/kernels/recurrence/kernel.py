@@ -7,8 +7,12 @@ runs both with ``lax.scan``, one compiled loop on the device, and these are
 the port's counterpart of that loop (the source's note says what bounds
 them).
 
+Both kernels are chunked scans whose chunk products run on the tensor
+cores in 3xTF32; they compute the recurrence from a zero state in float32.
+
 They take CUDA tensors only, float32, with a contiguous last dimension
-(any other strides), and check device, dtype and shape, raising on
+(any other strides: views whose bases or strides are not on 16 bytes are
+staged 4 bytes at a time), and check device, dtype and shape, raising on
 anything the kernels do not take; there is no fallback.  CPU tensors go to
 the plain versions (``ref.py``) one level up, in ``ops``.  Neither has a
 backward: inputs that require grad under grad mode are refused.

@@ -12,6 +12,13 @@ its output must not depend on the config's ``scan_chunk`` at all.  Float32,
 tolerance 1e-5 (the same sums in another order).  Inputs are drawn with
 numpy from a seed; weights come from JAX's ``init_rwkv_block`` and
 ``init_mamba``.
+
+The CUDA kernels' chunked algorithm, in plain float32 (``ref``'s
+``wkv6_scan_chunked_ref`` and ``ssd_scan_chunked_ref``: 32-step chunks of
+16-step sub-chunks, every decay factor a product over a segment), is held
+against JAX's scans and the step loops at S in {1, 15, 16, 17, 63, 64, 65,
+128, 130, 1000}, with the models' decays, strong ones (some exactly 0),
+none (w = dec = 1) and one near-zero decay among mild ones.
 """
 
 import dataclasses
@@ -28,13 +35,20 @@ from repro.models import ssm as jssm
 from repro_torch.configs import registry as treg
 from repro_torch.kernels.recurrence import kernel as rkernel
 from repro_torch.kernels.recurrence import ops as rops
-from repro_torch.kernels.recurrence.ref import ssd_scan_ref, wkv6_scan_ref
+from repro_torch.kernels.recurrence.ref import (
+    ssd_scan_chunked_ref,
+    ssd_scan_ref,
+    wkv6_scan_chunked_ref,
+    wkv6_scan_ref,
+)
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models import ssm as tssm
 
 TOL = 1e-5
 SEQS = [1, 7, 128, 130, 256]
 CHUNKS = [1, 64, 128]
+CHUNKED_SEQS = [1, 15, 16, 17, 63, 64, 65, 128, 130, 1000]  # around 16- and 32-step edges
+DECAYS = ["model", "strong", "none", "spike"]
 
 
 def _close(got: torch.Tensor, want, tol: float = TOL) -> None:
@@ -86,20 +100,40 @@ def _jax_ssd(decay, dtx, bm, cm, chunk):
     return np.asarray(ys.transpose(1, 0, 2, 3))
 
 
-def _wkv_inputs(b, s, h, seed):
+def _spiked(mild: np.ndarray) -> np.ndarray:
+    """Mild decays with one near-zero step (1e-30) early in the first chunk."""
+    mild[:, min(2, mild.shape[1] - 1)] = 1e-30
+    return mild
+
+
+def _wkv_inputs(b, s, h, seed, decay="model"):
+    """decay: "model" (w = exp(-exp(x)), x in [-6, 0.5]), "strong" (x up to 5:
+    some w exactly 0), "none" (w = 1) or "spike" (see ``_spiked``)."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((b, s, h, 64)).astype(np.float32) for _ in range(3))
-    w = np.exp(-np.exp(rng.uniform(-6.0, 0.5, (b, s, h, 64)))).astype(np.float32)
+    hi = {"model": 0.5, "strong": 5.0, "none": 0.5, "spike": -2.0}[decay]
+    w = np.exp(-np.exp(rng.uniform(-6.0, hi, (b, s, h, 64)))).astype(np.float32)
+    if decay == "none":
+        w = np.ones_like(w)
+    elif decay == "spike":
+        w = _spiked(w)
     u = (0.1 * rng.standard_normal((h, 64))).astype(np.float32)
     return r, k, v, w, u
 
 
-def _ssd_inputs(b, s, h, n, seed):
+def _ssd_inputs(b, s, h, n, seed, decay="model"):
+    """decay: "model" (exp(-U[0, 2])), "strong" (exp(-U[0, 60]), a fifth
+    exactly 0), "none" (1) or "spike" (exp(-U[0, 0.1]), see ``_spiked``)."""
     rng = np.random.default_rng(seed)
-    decay = np.exp(-rng.uniform(0.0, 2.0, (b, s, h))).astype(np.float32)
+    u = rng.uniform(0.0, 1.0, (b, s, h))
+    decay_ = np.exp(-{"model": 2.0, "strong": 60.0, "none": 0.0, "spike": 0.1}[decay] * u)
+    if decay == "strong":
+        decay_[u > 0.8] = 0.0
+    elif decay == "spike":
+        decay_ = _spiked(decay_)
     dtx = rng.standard_normal((b, s, h, 64)).astype(np.float32)
     bm, cm = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
-    return decay, dtx, bm, cm
+    return decay_.astype(np.float32), dtx, bm, cm
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
@@ -118,6 +152,41 @@ def test_ssd_scan_plain_matches_jax_scan(s, chunk):
     got = rops.ssd_scan(*(torch.from_numpy(a) for a in arrays))
     assert got.shape == (2, s, 3, 64) and got.dtype == torch.float32
     _close(got, _jax_ssd(*arrays, chunk))
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+@pytest.mark.parametrize("s", CHUNKED_SEQS)
+def test_wkv6_chunked_ref_matches_jax_scan_and_step_loop(s, decay):
+    """The kernel's chunked algorithm against JAX's scan and the step loop."""
+    arrays = _wkv_inputs(2, s, 3, seed=s + 11, decay=decay)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    got = wkv6_scan_chunked_ref(*tensors)
+    assert got.shape == (2, s, 3, 64) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    _close(got, _jax_wkv(*arrays, 64))
+    _close(got, wkv6_scan_ref(*tensors).numpy())
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+@pytest.mark.parametrize("s", CHUNKED_SEQS)
+def test_ssd_chunked_ref_matches_jax_scan_and_step_loop(s, decay):
+    arrays = _ssd_inputs(2, s, 3, 64, seed=s + 13, decay=decay)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    got = ssd_scan_chunked_ref(*tensors)
+    assert got.shape == (2, s, 3, 64) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    _close(got, _jax_ssd(*arrays, 64))
+    _close(got, ssd_scan_ref(*tensors).numpy())
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_chunked_refs_take_other_chunk_lengths(chunk):
+    """One sub-chunk a chunk, and four (products of whole sub-chunks between
+    an off-diagonal block's rows and columns), against the step loops."""
+    wkv = [torch.from_numpy(a) for a in _wkv_inputs(2, 130, 2, seed=chunk, decay="strong")]
+    _close(wkv6_scan_chunked_ref(*wkv, chunk=chunk), wkv6_scan_ref(*wkv).numpy())
+    ssd = [torch.from_numpy(a) for a in _ssd_inputs(2, 130, 2, 64, seed=chunk, decay="spike")]
+    _close(ssd_scan_chunked_ref(*ssd, chunk=chunk), ssd_scan_ref(*ssd).numpy())
 
 
 def test_scans_take_strided_views_of_one_projection():

@@ -6,11 +6,15 @@ on first use); skipped elsewhere.  Imports no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_recurrence_cuda.py
 
-The cases are chip_smoke.py's phase 17 (a): S in {1, 2, 63, 64, 65, 129,
-1000} (the kernels stage 32 steps at a time), B in {1, 3}, H in {1, 5, 40},
-contiguous inputs and strided views of one projection.  Each output within
-1e-4 of the largest |plain| of its (b, h): float32 sums in another order,
-over up to 1000 steps of a decaying state.  Two launches bit for bit equal.
+The cases are chip_smoke.py's phase 17 (a): S in {1, 2, 15, 16, 17, 31, 32,
+33, 63, 64, 65, 129, 1000} (the chunked kernels cut 32-step chunks into
+16-step sub-chunks), B in {1, 3}, H in {1, 5, 40}, contiguous inputs and
+strided views of one projection; strong decays (some exactly 0), none and
+one near-zero decay among mild ones; views that start 4 bytes into their
+buffer (staged 4 bytes at a time).  Each output within 1e-4 of the largest
+|plain| of its (b, h): float32 sums in another order, over up to 1000 steps
+of a decaying state.  Two launches bit for bit equal.  The inputs are
+drawn by ``kernels/recurrence/draws.py``, as phase 17 (a) draws them.
 """
 
 import numpy as np
@@ -20,12 +24,15 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.recurrence import kernel as rkernel
 from repro_torch.kernels.recurrence import ops as rops
+from repro_torch.kernels.recurrence.draws import ssd_inputs, wkv_inputs
 from repro_torch.kernels.recurrence.ref import ssd_scan_ref, wkv6_scan_ref
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4
-SEQS = [1, 2, 63, 64, 65, 129, 1000]
+SEQS = [1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 129, 1000]
+DECAYS = ["strong", "unit", "spike"]
+LAYOUTS = ["contiguous", "strided", "misaligned"]
 
 
 @pytest.fixture
@@ -40,32 +47,6 @@ def _per_head_close(got: torch.Tensor, want: torch.Tensor) -> None:
     scale = want.abs().amax(dim=(1, 3), keepdim=True).clamp_min(1e-30)
     err = float(((got - want).abs() / scale).max())
     assert err <= TOL, err
-
-
-def wkv_inputs(b, s, h, dev, *, strided: bool, seed: int):
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    if strided:  # r, k, v, w as column slices of one fused projection
-        fused = torch.randn((b, s, 4 * h * 64 + 32), generator=gen, device=dev)
-        r, k, v, w = (fused[..., i * h * 64:(i + 1) * h * 64].view(b, s, h, 64)
-                      for i in range(4))
-    else:
-        r, k, v, w = (torch.randn((b, s, h, 64), generator=gen, device=dev) for _ in range(4))
-    w = torch.exp(-torch.exp(w.clamp(max=0.5) - 3.0))
-    u = 0.1 * torch.randn((h, 64), generator=gen, device=dev)
-    return r, k, v, w, u
-
-
-def ssd_inputs(b, s, h, dev, *, strided: bool, seed: int):
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    if strided:  # dtx, b, c as slices of one conv output
-        conv = torch.randn((b, s, h * 64 + 2 * 64), generator=gen, device=dev)
-        dtx = conv[..., :h * 64].view(b, s, h, 64)
-        bm, cm = conv[..., h * 64:h * 64 + 64], conv[..., h * 64 + 64:]
-    else:
-        dtx = torch.randn((b, s, h, 64), generator=gen, device=dev)
-        bm, cm = (torch.randn((b, s, 64), generator=gen, device=dev) for _ in range(2))
-    decay = torch.exp(-2.0 * torch.rand((b, s, h), generator=gen, device=dev))
-    return decay, dtx, bm, cm
 
 
 @pytest.mark.parametrize("strided", [False, True])
@@ -95,6 +76,27 @@ def test_ssd_kernel_matches_plain(cuda, s, strided):
         assert rkernel.ssd_scan_cuda.launches == before + 2
         _per_head_close(got, ssd_scan_ref(*args))
         assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("decay", DECAYS)
+def test_kernels_hold_strong_unit_and_spike_decays(cuda, decay, layout):
+    """Exactly-0 decays, none, and one near-zero decay among mild ones, in
+    contiguous, strided and misaligned views (the last staged 4 bytes at a
+    time): every product of decays the chunks form is over one segment."""
+    for b, s, h in ((1, 65, 5), (3, 1000, 40)):
+        kw = dict(strided=layout == "strided", misaligned=layout == "misaligned", decay=decay)
+        for kind, make, kernel, plain in (
+                ("wkv6", wkv_inputs, rkernel.wkv6_scan_cuda, wkv6_scan_ref),
+                ("ssd", ssd_inputs, rkernel.ssd_scan_cuda, ssd_scan_ref)):
+            args = make(b, s, h, cuda, seed=s + h, **kw)
+            if layout == "misaligned":
+                assert args[1].data_ptr() % 16 == 4
+            got, again = kernel(*args), kernel(*args)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all()), (kind, b, s, h)
+            _per_head_close(got, plain(*args))
+            assert torch.equal(got, again)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
