@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with the card:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line).  They
-run in the order 1, 2, 6-8, 13, 16, 17, 3-5, 12's Table II part, 10, 9,
-11, 12, 14, 15: phase 3's tensor is drawn in a child process on the host
-while phases 6-8, 13, 16 and 17 keep the card busy.
+run in the order 1, 2, 6-8, 13, 16, 17, 18, 3-5, 12's Table II part, 10,
+9, 11, 12, 14, 15: phase 3's tensor is drawn in a child process on the
+host while phases 6-8, 13, 16, 17 and 18 keep the card busy.
 
   1. the card, the versions, both TF32 flags, and the build of every CUDA
      source with nvcc for sm_90a;
@@ -224,6 +224,29 @@ while phases 6-8, 13, 16 and 17 keep the card busy.
      against plain at S = 256; (f) the wgmma flash kernel at phase 16's
      training shape and at (b)'s and (d)'s shapes beside its plain version,
      SDPA and the bound.
+ 18. training the RWKV-6, hybrid, encoder-decoder and VLM families: (a)
+     both scans' backward kernels (``kernels/recurrence/csrc/
+     recurrence_bwd.cu``) against their plain versions (the chunked
+     algorithm of ``ref.py`` in float64) over (17)'s 176 cases a kernel
+     (1e-4 of each (b, h)'s largest |plain| over every gradient, two
+     launches bit for bit), then at the training shape (B = 2, S = 4096;
+     rwkv6-3b's 40 heads, zamba2-1.2b's 64) beside the forward kernel, the
+     plain version and the bound (the function's bytes, or its products at
+     the TF32 rate and the rest at the float32 rate); (b) each family's
+     reduced config, 3
+     float32 AdamW steps with 2 microbatches on the card against the CPU
+     (``FAMILY_STEP_TOL``); (c) rwkv6-3b and zamba2-1.2b at full width and
+     depth through ``launch/train.py``'s path, B = 2, S = 4096, AdamW,
+     remat "full", 4 steps: losses, step time, tokens/s, peak memory, each
+     kernel's launches a step (the scans twice forward, once backward,
+     flash twice a shared-block use), one step under the profiler by kernel
+     class, and layer 0's gradients in float32 through the kernels against
+     the plain step loops under autograd; (d) the flash kernels with their
+     lse, not causal, at whisper-base's training shapes (its encoder, and
+     448 queries against 4096 and 1500 keys) against the plain version's
+     output and lse; whisper-base on ``input_specs(train_4k)`` at B = 4 and
+     internvl2-26b at 4 of 48 layers, B = 2, through ``make_train_step``,
+     the same figures.
 
 The last four lines are phase 15's facts (``{"phase15": ...}``), the card's
 ``name, power.limit``, a JSON object
@@ -235,7 +258,8 @@ tile mode, on the blocked plans of phase 10, with the block kernel's time
 as ``previous_ms``; and the wgmma flash kernel
 with the ``mma.sync`` kernel's, phase 13's decode numbers and phase 16's
 training numbers, its launches on the training path and phase 17's under
-``launches_by_path``; and the two recurrence kernels, ``library_ms`` null),
+``launches_by_path``; the two recurrence kernels and their two backward
+kernels, ``library_ms`` null),
 and
 ``{"ok": true, "device": {...}}``.  The
 script needs no network and imports no JAX.
@@ -334,6 +358,7 @@ from repro_torch.serve import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
@@ -3002,10 +3027,12 @@ def bf16_step_gaps(dev, card: str) -> dict:
                 cpu_to_f32=max(to_f32["cpu"].values()))
 
 
-def classify_step(fn) -> dict:
+def classify_step(fn, extra: dict | None = None) -> dict:
     """One call of ``fn`` under torch.profiler: device ms by kernel class
-    (the flash forward by its kernel's name; cuBLAS products; the rest),
-    the top kernels, and the device's busy ms."""
+    (the flash forward by its kernel's name; cuBLAS products; ``extra``'s
+    classes, name substring -> class; the rest), the top kernels, and the
+    device's busy ms."""
+    extra = extra or {}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3015,10 +3042,14 @@ def classify_step(fn) -> dict:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    classes = {"flash forward": 0.0, "matrix products (cuBLAS)": 0.0, "rest": 0.0}
+    classes = {"flash forward": 0.0, "matrix products (cuBLAS)": 0.0,
+               **{c: 0.0 for c in extra.values()}, "rest": 0.0}
     for e in events:
         name = e.key.lower()
-        if "flash_fwd" in name:
+        hit = next((c for sub, c in extra.items() if sub in name), None)
+        if hit is not None:
+            key = hit
+        elif "flash_fwd" in name:
             key = "flash forward"
         elif any(t in name for t in ("gemm", "sm90_", "cutlass", "nvjet", "xmma")):
             key = "matrix products (cuBLAS)"
@@ -3148,9 +3179,9 @@ VLM_LAYERS = 8  # of 48: float32 masters of all 48 outgrow the 80 GB card
 VLM_BATCH = 1
 SCAN_TOL = 1e-4  # of the largest |plain| of each (b, h): float32 sums in another order
 # recurrent_blocks: float32 on both sides; the scans alone differ by up to
-# 3.3e-5 of a head's largest output (phase 17 (a)), the layer's norms and
-# products add float32 rounding; 1e-3 leaves 30x room and is 50x below
-# BF16_SCALE_TOL.  The whole-model bf16 comparison does not hold for
+# 2.4e-5 (WKV-6) and 2.5e-6 (SSD) of a head's largest output over phase 17
+# (a)'s cases on an H100, the layer's norms and products add float32
+# rounding; 1e-3 leaves 40x room and is 50x below BF16_SCALE_TOL.  The whole-model bf16 comparison does not hold for
 # rwkv6-3b with random weights: on the CPU a relative 1e-6 perturbation of
 # each layer's WKV output grows ~1.9x a layer in float32 (2e-5, 1e-4, 1.2e-3
 # of the logits at 2, 4 and 8 full-width layers), and bf16 rounding alone
@@ -3194,12 +3225,13 @@ FLASH_NEW_SHAPES = {
 def plain_scans():
     """The models' recurrences through their plain per-step loops, on the
     card too (the kernel-against-plain checks); restored on exit."""
-    saved = trwkv.wkv6_scan, tssm.ssd_scan
-    trwkv.wkv6_scan, tssm.ssd_scan = rref.wkv6_scan_ref, rref.ssd_scan_ref
+    saved = trwkv.wkv6_scan_logw, tssm.ssd_scan_logdec
+    trwkv.wkv6_scan_logw = lambda r, k, v, log_w, u: rref.wkv6_scan_ref(r, k, v, torch.exp(log_w), u)
+    tssm.ssd_scan_logdec = lambda log_dec, *rest: rref.ssd_scan_ref(torch.exp(log_dec), *rest)
     try:
         yield
     finally:
-        trwkv.wkv6_scan, tssm.ssd_scan = saved
+        trwkv.wkv6_scan_logw, tssm.ssd_scan_logdec = saved
 
 
 class _Captured(Exception):
@@ -3326,7 +3358,9 @@ def scan_full_shape(kind: str, args: list, card: str) -> dict:
 
 LAUNCH_COUNTERS = {"flash": lambda: fkmod.flash_attention_cuda.launches,
                    "wkv6": lambda: rkmod.wkv6_scan_cuda.launches,
-                   "ssd": lambda: rkmod.ssd_scan_cuda.launches}
+                   "ssd": lambda: rkmod.ssd_scan_cuda.launches,
+                   "wkv6_bwd": lambda: rkmod.wkv6_scan_bwd_cuda.launches,
+                   "ssd_bwd": lambda: rkmod.ssd_scan_bwd_cuda.launches}
 
 
 def family_prefill(label: str, cfg, model, batch: dict, positions: int, expect: dict,
@@ -3349,7 +3383,8 @@ def family_prefill(label: str, cfg, model, batch: dict, positions: int, expect: 
         end.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         grew = {k: f() - before[k] for k, f in LAUNCH_COUNTERS.items()}
-        check(grew == expect, f"{label}: prefill {rep} launched {grew}, expected {expect}")
+        check(grew == {k: expect.get(k, 0) for k in grew},
+              f"{label}: prefill {rep} launched {grew}, expected {expect}")
         if rep:
             times.append(start.elapsed_time(end))
     launches = {k: f() for k, f in LAUNCH_COUNTERS.items()}  # the main path ends here
@@ -3609,7 +3644,9 @@ def scan_entries(families: dict) -> list[dict]:
         full = fams[arch][f"{kind}_full"]
         b, s, h, hd = full["shape"]
         by_path = {f"prefill, {arch} (phase 17)": fams[arch]["prefill"]["launches"][kind],
-                   **decode_launches(fams, kind)}
+                   **decode_launches(fams, kind),
+                   f"train(), {arch} full width, forward and recompute (phase 18c)":
+                       families["trained"]["train"][arch]["launches"][kind]}
         out.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/recurrence/csrc/recurrence.cu",
             replaces=site, replaces_note=what, launches=sum(by_path.values()),
@@ -3646,7 +3683,8 @@ def families_phase(dev, card: str) -> dict:
     entry = {"prefill": family_prefill(cfg.name, cfg, model, batch, FAMILY_BATCH * FAMILY_SEQ,
                                        {"flash": n_shared, "wkv6": 0, "ssd": cfg.num_layers}, card)}
     with torch.inference_mode():
-        args = first_call_args(tssm, "ssd_scan", lambda: forward(model, cfg, batch))
+        args = first_call_args(tssm, "ssd_scan_logdec", lambda: forward(model, cfg, batch))
+    args[0] = torch.exp(args[0])  # the decay, as the scan forms it from its log
     entry["ssd_full"] = scan_full_shape("ssd", args, card)
     del args
     entry["vs_plain"] = family_vs_plain(cfg.name, cfg, model, {
@@ -3670,7 +3708,8 @@ def families_phase(dev, card: str) -> dict:
     entry = {"prefill": family_prefill(cfg.name, cfg, model, batch, FAMILY_BATCH * FAMILY_SEQ,
                                        {"flash": 0, "wkv6": cfg.num_layers, "ssd": 0}, card)}
     with torch.inference_mode():
-        args = first_call_args(trwkv, "wkv6_scan", lambda: forward(model, cfg, batch))
+        args = first_call_args(trwkv, "wkv6_scan_logw", lambda: forward(model, cfg, batch))
+    args[3] = torch.exp(args[3])  # w, as the scan forms it from its log
     entry["wkv6_full"] = scan_full_shape("wkv6", args, card)
     del args
     # The whole-model gaps at 32 layers are printed; they are held at
@@ -3748,6 +3787,574 @@ def families_phase(dev, card: str) -> dict:
     return result
 
 
+# Phase 18: training the RWKV-6, hybrid, encoder-decoder and VLM families on
+# the card, through the scan kernels' backward kernels and the flash kernel.
+TRAIN_FAMILY_SEQ = 4096  # train_4k's length
+TRAIN_FAMILY_BATCH = 2  # train_4k's global batch of 256, cut to what one card holds
+TRAIN_FAMILY_STEPS = 4  # the first one warms up
+WHISPER_TRAIN_BATCH = 4
+VLM_TRAIN_LAYERS = 4  # of 48: AdamW's masters and moments of all 48 need ~240 GB
+BWD_SHAPES = {"wkv6": ("rwkv6-3b", (2, 4096, 40)), "ssd": ("zamba2-1.2b", (2, 4096, 64))}
+BWD_REPS = 5
+# tests/test_torch_train_families.py: float32 AdamW steps at lr 1e-3 within
+# 1e-4 relative.  The recurrent families' reduced configs amplify float32
+# rounding in their scans into their gradients and moments; each limit lies
+# between what sound runs read and what a control reads (scripts/
+# torch_family_step_gaps.py, seeds 0-2, NVIDIA H100 80GB HBM3 at 700 W):
+# card vs CPU with the scan kernels, and with the plain step loops on the
+# card, against the kernels with their operands and gradients rounded to
+# TF32 (one TF32 pass, not 3xTF32).  rwkv6-3b: sound up to 5.16e-3 (the
+# plain loops on the card; the kernels 2.54e-3 at seed 0, this phase's),
+# control 0.328-0.433; the CPU's own float32 scan lies 1.7e-4-4.0e-3 from a
+# float64 one.  zamba2-1.2b: sound up to 2.79e-4 (kernels, seed 0; the
+# plain loops 1.31e-4), control 7.96e-4-1.06e-3.  Both families' blocks are
+# held in float32 at full width in (c), 1e-3 of each gradient's norm.
+FAMILY_STEP_TOL = {"rwkv6-3b": 1e-2, "zamba2-1.2b": 5e-4}
+FAMILY_STEP_LR = 1e-3
+# One recurrent block's gradients in float32, scan kernels against plain
+# loops: each leaf within 1e-3 of its norm (one layer: the forward blocks of
+# phase 17 hold 1e-3 of the residual's change; a gradient sums such terms).
+GRAD_BLOCK_TOL = 1e-3
+GRAD_BLOCK_BATCH = 1  # the plain loop's autograd keeps a state a step: 8.6 GB at H = 64
+
+
+def bwd_inputs(kind: str, b: int, s: int, h: int, dev, **kw):
+    """Phase 18 (a)'s inputs (phase 17 (a)'s draws) and a cotangent dy."""
+    args = scan_inputs(kind, b, s, h, dev, **kw)
+    gen = torch.Generator(device=dev).manual_seed(kw.get("seed", 0) + 1)
+    return args, torch.randn((b, s, h, 64), generator=gen, device=dev)
+
+
+# Each backward kernel's plain version: its chunked algorithm in plain
+# PyTorch (kernels/recurrence/ref.py), which the CPU tests hold against
+# autograd through the step loops and against jax.vjp; run here in float64,
+# so that a gradient that is one 64-term dot product (S = 1: dv = A[0, 0]
+# dy_0) is held to its exact value, not to another float32 rounding of a
+# sum that cancels.  The step loops under autograd, the independent oracle,
+# hold each block's gradients in (c); tests/test_torch_recurrence_cuda.py
+# holds the kernels to them over this grid.
+BWD = {"wkv6": (rkmod.wkv6_scan_bwd_cuda, rref.wkv6_scan_bwd_chunked_ref),
+       "ssd": (rkmod.ssd_scan_bwd_cuda, rref.ssd_scan_bwd_chunked_ref)}
+
+
+def bwd_plain(kind: str, args, dy, dtype=torch.float64) -> list[torch.Tensor]:
+    """The plain version's gradients in float32, as bwd_errors compares them
+    (the SSD's dbm and dcm summed over the heads)."""
+    out = BWD[kind][1](*(a.to(dtype) for a in args), dy.to(dtype))
+    if kind == "ssd":
+        out = (out[0], out[1], out[2].sum(2), out[3].sum(2))
+    return [t.float() for t in out]
+
+
+def bwd_errors(kind: str, got, want) -> list[float]:
+    """Each gradient's largest |kernel - plain| over the largest |plain| of its
+    (b, h) (du: of its head; the SSD's per-head dbm and dcm summed over the
+    heads: of its sequence)."""
+    if kind == "ssd":
+        got = (got[0], got[1], got[2].sum(2), got[3].sum(2))
+        dims = [(1,), (1, 3), (1, 2), (1, 2)]
+    else:
+        dims = [(1, 3)] * 4 + [(1,)]
+    out = []
+    for g, w, d in zip(got, want, dims):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"{kind} backward: a gradient of shape {tuple(g.shape)} (plain {tuple(w.shape)}) "
+              "or not finite")
+        scale = w.abs().amax(dim=d, keepdim=True).clamp_min(1e-30)
+        out.append(float(((g - w).abs() / scale).max()) if w.numel() else 0.0)
+    return out
+
+
+def bwd_cases(dev) -> dict:
+    """Phase 18 (a): both backward kernels against their plain versions (in
+    float64) over phase 17 (a)'s cases, each launched twice."""
+    worst = {}
+    for kind, (kernel, plain) in BWD.items():
+        failures, errs = [], []
+        for case in scan_case_list():
+            case = dict(case)
+            s, b, h = case.pop("s"), case.pop("b"), case.pop("h")
+            args, dy = bwd_inputs(kind, b, s, h, dev, seed=s * 11 + h + b, **case)
+            got, again = kernel(*args, dy), kernel(*args, dy)
+            each = bwd_errors(kind, got, bwd_plain(kind, args, dy))
+            err = max(each)
+            errs.append(err)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            if not (err <= SCAN_TOL and same):
+                failures.append(f"S={s} B={b} H={h} {case}: errors {[f'{e:.2e}' for e in each]}"
+                                f", repeat equal {same}")
+        worst[kind] = max(errs)
+        print(f"  {kind} backward kernel: {len(errs)} cases (phase 17 (a)'s), max error "
+              f"{max(errs):.3e} of each (b, h)'s largest |plain| over every gradient (tol "
+              f"{SCAN_TOL:g}), every repeat bit for bit")
+        check(not failures, f"the {kind} backward kernel disagrees with its plain version: "
+                            f"{failures[:5]}")
+    return worst
+
+
+def bwd_min_flops(kind: str, b: int, s: int, h: int) -> tuple[int, int]:
+    """The operations the backward function needs on these shapes, counted
+    per (b, h) and 32-step chunk of L steps in the chunked form with its
+    O(L^2) sums, ``(products, elementwise)``; the products are counted as the
+    forward rows count theirs, three a 3xTF32 product.  Products: the five
+    state products (2 L 64^2 each: the chunk-start state's recompute, the
+    start state's share of dr (WKV-6) or dc (SSD), the end state's of dk
+    and dv (WKV-6) or db and dx (SSD), G's update) and the pair products
+    (2 a pair and column: WKV-6's D, A, dv's A^T dy over the pairs with
+    their diagonal, dr's and dk's over the pairs below it; the SSD's E,
+    C B^T, dc, db and dx over the pairs with their diagonal).  Elementwise:
+    the decays' gradient, a product and two prefix sums a pair and column
+    (WKV-6; a pair for the SSD) and its start- and end-state parts."""
+    n, d = SCAN_CHUNK, 64
+    pairs, incl = n * (n - 1) // 2, n * (n + 1) // 2
+    state = 5 * 2 * n * d * d
+    if kind == "wkv6":
+        products = state + 3 * 2 * incl * d + 2 * 2 * pairs * d
+        elementwise = 3 * pairs * d + 4 * n * d + 2 * d * d
+    else:
+        products = state + 5 * 2 * incl * d
+        elementwise = 3 * incl + 4 * n * d + 2 * d * d
+    per = b * h * -(-s // SCAN_CHUNK)
+    return 3 * products * per, elementwise * per
+
+
+def bwd_kernel_flops(kind: str, b: int, s: int, h: int) -> tuple[int, int]:
+    """What the backward kernels' own algorithm (csrc/recurrence_bwd.cu)
+    spends on these shapes beyond ``bwd_min_flops``'s count, ``(float32,
+    float64)``, per (b, h) and 32-step chunk of L steps, all on the CUDA
+    cores: the forward pass to the chunk-start states (3 L 64^2); the
+    chunk's products with the 64 x 64 states (WKV-6: dr's and dk's start and
+    end parts, dv's G term, G's update; SSD: dc0, dbe, G b and G's update;
+    2 L 64^2 each); the pairs' running products along the decays (WKV-6: 8
+    a pair and channel for A, dki and dr', 3 a triple s < t < tau and channel
+    for dlogw's pairs, O(L^3); SSD: dc, db and dx's three triangles, 2 a
+    pair and column); and in float64 the pair dot products (WKV-6: D and A;
+    SSD: E and C B^T).  Printed beside the bound, not part of it."""
+    n = SCAN_CHUNK
+    pairs, incl = n * (n - 1) // 2, n * (n + 1) // 2
+    triples = sum(t * (n - 1 - t) for t in range(n))
+    if kind == "wkv6":
+        f32 = 3 * n * 4096 + 4 * 2 * n * 4096 + 8 * pairs * 64 + 2 * incl * 64 + 3 * (
+            triples + pairs) * 64
+        f64 = 2 * n * n * 64 + 2 * incl * 64
+    else:
+        f32 = 3 * n * 4096 + 4 * 2 * n * 4096 + 3 * 2 * incl * 64
+        f64 = 2 * 2 * n * n * 64
+    per = b * h * -(-s // SCAN_CHUNK)
+    return f32 * per, f64 * per
+
+
+def bwd_full_shape(kind: str, card: str) -> dict:
+    """Phase 18 (a): one backward kernel at the training shape (B = 2, S =
+    4096, the family's heads; strided views with the models' decays), its
+    forward kernel's time beside it, its plain version (float32 timed, held
+    in float64), and the bound: the larger of its bytes (each input and dy
+    read once, each gradient written once) and the function's operations
+    (``bwd_min_flops``), its products at the TF32 rate as the forward rows
+    count theirs, the rest at the float32 rate, the two times summed."""
+    arch, (b, s, h) = BWD_SHAPES[kind]
+    kernel, plain = BWD[kind]
+    fwd = SCANS[kind][0]
+    args, dy = bwd_inputs(kind, b, s, h, resolve_device("cuda"), seed=5, strided=True)
+    got = kernel(*args, dy)
+    times = [median_ms(lambda: kernel(*args, dy), BWD_REPS) for _ in range(2)]
+    ms = float(np.median(times))
+    fwd_ms = median_ms(lambda: fwd(*args), BWD_REPS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain(*args, dy)  # the plain version in float32: its time
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    want = bwd_plain(kind, args, dy)
+    errs = bwd_errors(kind, got, want)
+    g_ssd = (got[0], got[1], got[2].sum(2), got[3].sum(2)) if kind == "ssd" else got
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(g_ssd, want))
+    del want, got
+    read = (sum(a.numel() for a in args) + dy.numel()) * 4  # inputs and dy, once each
+    if kind == "wkv6":  # dr, dk, dv, dlogw and du
+        written = (4 * dy.numel() + args[4].numel()) * 4
+    else:  # dlogdec, ddtx, dbm and dcm (the kernel's per-head ones are its own)
+        written = (args[0].numel() + dy.numel() + 2 * args[2].numel()) * 4
+    nbytes = read + written
+    products, elementwise = bwd_min_flops(kind, b, s, h)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (products / TF32_FLOPS_PER_S + elementwise / F32_FLOPS_PER_S) * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    f32, f64 = bwd_kernel_flops(kind, b, s, h)
+    own_ms = (f32 / F32_FLOPS_PER_S + f64 / F64_FLOPS_PER_S) * 1e3
+    print(f"  {kind} backward kernel at {arch}'s training shape B={b} S={s} H={h}: "
+          f"{[round(t, 3) for t in times]} ms (medians of {BWD_REPS}); its forward kernel "
+          f"{fwd_ms:.3f} ms; plain (the chunked algorithm, float32) {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB at 3.35 TB/s, {bytes_ms:.3f} "
+          f"ms; the function's {products:.3e} TF32 product flops at 495 TFLOP/s and "
+          f"{elementwise:.3e} float32 elementwise at 67, {ops_ms:.3f} ms), share of bound "
+          f"{bound_ms / ms:.3f}; the kernel's own algorithm on the CUDA cores {f32:.3e} float32 "
+          f"flops at 67 TFLOP/s and {f64:.3e} float64 at 34, {own_ms:.3f} ms; error "
+          f"{max(errs):.3e} of each (b, h)'s largest |plain| (tol {SCAN_TOL:g}), max |kernel - "
+          f"plain| {max_abs:.3e}  [{card}]")
+    check(max(errs) <= SCAN_TOL, f"the {kind} backward kernel disagrees with plain at full shape")
+    return dict(ms=ms, times_ms=times, fwd_ms=fwd_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=max_abs, rel_err=max(errs), shape=[b, s, h, 64])
+
+
+def family_train_batch(cfg, b: int, dev, seed: int, *, seq: int = 32, frames: int = 40,
+                       prefix: int = 8) -> dict:
+    """A batch of the family's inputs: tokens and labels, and whisper's
+    frames or internvl2's patch embeddings (float32)."""
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticLMStream(cfg.vocab_size, seq, b, seed=seed)).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((b, frames, cfg.d_model), generator=gen, device=dev)
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = torch.randn((b, prefix, cfg.d_model), generator=gen, device=dev)
+    return batch
+
+
+def reduced_family_steps(dev, card: str) -> dict:
+    """Phase 18 (b): each family's reduced config, 3 float32 AdamW steps with
+    2 microbatches on the card against the CPU (the bf16 cotangent fence out
+    of both sides, as phase 16 (d)): losses, gradient norms and every leaf of
+    the parameters and both moments; the card's steps must launch each scan's
+    forward and backward kernels, and the flash kernel."""
+    out = {}
+    fence, ttr.grad_fence_bf16 = ttr.grad_fence_bf16, lambda x: x
+    try:
+        for arch in ("rwkv6-3b", "zamba2-1.2b", "whisper-base", "internvl2-26b"):
+            small = reduced_config(arch, dtype=torch.float32, attention_impl="blocked")
+            batches = [family_train_batch(small, 4, "cpu", seed=i) for i in range(3)]
+            runs = {}
+            for where in ("cpu", dev):
+                rkmod.reset_launch_counts()
+                fkmod.reset_launch_counts()
+                state = init_adamw_state(init_model(small, seed=0, device="cpu").to(where),
+                                         lr=FAMILY_STEP_LR)
+                step = tzoo.make_train_step(small, AdamW(), num_microbatches=2, device=where)
+                metrics = []
+                for batch in batches:
+                    state, m = step(state, batch)
+                    metrics.append({key: float(val) for key, val in m.items()})
+                runs[str(where)] = (metrics, tree_to_numpy(state), {
+                    k: f() for k, f in LAUNCH_COUNTERS.items()})
+            (cpu_m, cpu_s, _), (card_m, card_s, launched) = runs["cpu"], runs[str(dev)]
+            gaps = [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(card_m, cpu_m)
+                    for key in ("loss", "grad_norm")]
+            leaf = {}
+            for (where, want), got in zip(_leaf_items({k: cpu_s[k] for k in ("params", "m", "v")}),
+                                          (g for _, g in _leaf_items(
+                                              {k: card_s[k] for k in ("params", "m", "v")}))):
+                leaf[where] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+            worst = max(leaf, key=leaf.get)
+            tol = FAMILY_STEP_TOL.get(arch, STEP_TOL)
+            expect = {"wkv6": small.rwkv, "wkv6_bwd": small.rwkv,
+                      "ssd": small.family == "hybrid", "ssd_bwd": small.family == "hybrid",
+                      "flash": not small.rwkv}
+            launches_ok = all((launched[k] > 0) == want for k, want in expect.items())
+            print(f"  reduced {arch} float32, 3 AdamW steps (lr {FAMILY_STEP_LR:g}), 2 "
+                  f"microbatches, card vs CPU: losses {[round(m['loss'], 6) for m in card_m]}; max "
+                  f"relative gap of losses and gradient norms {max(gaps):.2e}, of a leaf of the "
+                  f"parameters and moments (in norm) {leaf[worst]:.2e} ({worst}; tol {tol:g}); "
+                  f"card launches {launched} {'ok' if launches_ok else 'FAIL'}")
+            check(max(gaps) <= tol and leaf[worst] <= tol,
+                  f"reduced {arch}: the card's train steps differ from the CPU's")
+            check(launches_ok, f"reduced {arch}: the card's steps launched {launched}")
+            out[arch] = dict(max_gap=max(gaps), max_leaf_gap=leaf[worst], launches=launched)
+    finally:
+        ttr.grad_fence_bf16 = fence
+    return out
+
+
+SCAN_CLASSES = {"wkv6_scan_bwd": "WKV-6 backward kernel", "ssd_scan_bwd": "SSD backward kernel",
+                "wkv6_scan_kernel": "WKV-6 forward kernel", "ssd_scan_kernel": "SSD forward kernel"}
+
+
+def block_grads(arch: str, cfg, model, toks: torch.Tensor) -> dict:
+    """Phase 18 (c): layer 0 of the model in float32 on its inputs (the
+    embedded tokens), its output against a fixed random cotangent: every
+    gradient (its input's and each weight's) through the scan kernels and
+    their backward kernels against the plain loops under autograd."""
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    lp = {k: v.detach().float() for k, v in model.params()["layers"][0][
+        "rwkv" if cfg.rwkv else "mamba"].items()}
+    lp_full = {k: (v.detach().float() if not isinstance(v, dict) else None)
+               for k, v in model.params()["layers"][0].items()}
+    x = model.params()["embed"]["emb"][toks.long()].detach().float()
+    gen = torch.Generator(device=x.device).manual_seed(9)
+    cot = torch.randn(x.shape, generator=gen, device=x.device)
+
+    def grads():
+        leaves = {k: v.clone().requires_grad_() for k, v in lp.items()}
+        xin = x.clone().requires_grad_()
+        layer = dict(lp_full, **({"rwkv": leaves} if cfg.rwkv else {"mamba": leaves}))
+        out = (ttr._rwkv_layer_seq(layer, c32, xin) if cfg.rwkv
+               else ttr._hybrid_layer_seq(layer, c32, xin, None, 0))
+        names = ["x", *leaves]
+        got = torch.autograd.grad(out, [xin, *leaves.values()], cot, allow_unused=True,
+                                  materialize_grads=True)
+        return dict(zip(names, got))
+
+    before = {k: f() for k, f in LAUNCH_COUNTERS.items()}
+    kern = grads()
+    launched = {k: f() - before[k] for k, f in LAUNCH_COUNTERS.items()}
+    with plain_scans():
+        plain = grads()
+    rel = {k: float((kern[k] - plain[k]).norm() / plain[k].norm().clamp_min(1e-30)) for k in plain}
+    worst = max(rel, key=rel.get)
+    kind = "wkv6" if cfg.rwkv else "ssd"
+    print(f"  {arch} layer 0 in float32 on its inputs (B={x.shape[0]}, S={x.shape[1]}), every "
+          f"gradient through the {kind} kernels vs the plain loops under autograd: max "
+          f"||kernel - plain|| / ||plain|| {rel[worst]:.3e} ({worst}; tol {GRAD_BLOCK_TOL:g}); "
+          f"launches {launched}")
+    check(rel[worst] <= GRAD_BLOCK_TOL, f"{arch}: layer 0's gradients differ from plain")
+    check(launched[kind] == 1 and launched[f"{kind}_bwd"] == 1,
+          f"{arch}: layer 0's gradients launched {launched}")
+    return dict(max_rel=rel[worst], worst=worst)
+
+
+def family_training(label: str, cfg, run_steps, tokens_a_step: int, steps: int, card: str,
+                    expect: dict) -> dict:
+    """Time ``run_steps()`` (which runs ``steps`` train steps and returns their
+    losses, marking each step's start): losses finite, step time, tokens/s,
+    peak memory and each kernel's launches a step, which must be
+    ``expect``'s."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rkmod.reset_launch_counts()  # the main path of phase 18 starts here
+    fkmod.reset_launch_counts()
+    marks = []
+
+    def mark(_step=None):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    losses = run_steps(mark)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    launched = {k: f() for k, f in LAUNCH_COUNTERS.items()}  # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    median_s = float(np.median(step_s[1:]))
+    per_step = {k: v / steps for k, v in launched.items()}
+    print(f"  {label}: losses {[round(x, 5) for x in losses]}; step wall times "
+          f"{[round(t, 3) for t in step_s]} s (each ends in a sync), median of steps 2-{steps} "
+          f"{median_s:.3f} s, {tokens_a_step / median_s:.0f} tokens/s; peak memory {peak_gb:.2f} "
+          f"GB; launches a step {per_step} (expected {expect})  [{card}]")
+    check(len(losses) == steps and all(np.isfinite(losses)), f"{label}: losses {losses}")
+    check(per_step == {k: float(expect.get(k, 0)) for k in per_step},
+          f"{label}: launches a step {per_step}, expected {expect}")
+    return dict(losses=losses, step_s=step_s, median_step_s=median_s,
+                tokens_per_s=tokens_a_step / median_s, peak_gb=peak_gb, launches=launched,
+                launches_per_step=per_step)
+
+
+def profile_train_step(label: str, step_fn, busy_of: float) -> dict:
+    """One more step under torch.profiler: device ms by class (the scan
+    kernels, flash, cuBLAS, the rest) and the idle share of the step."""
+    prof = classify_step(step_fn, extra=SCAN_CLASSES)
+    busy = max(prof["busy_ms"], 1e-9)
+    print(f"  {label}, one step under torch.profiler: device busy {busy:.1f} ms of a "
+          f"{busy_of * 1e3:.1f} ms step (idle share {max(0.0, 1 - busy / (busy_of * 1e3)):.3f})")
+    for key, ms in prof["classes"].items():
+        print(f"    by kernel name: {key:<28} {ms:10.1f} ms  {ms / busy:6.1%}")
+    for name, count, ms in prof["top"][:8]:
+        print(f"    {ms:10.3f} ms  x{count:<6} {name}")
+    return dict(busy_ms=busy, by_kernel_name_ms=prof["classes"])
+
+
+def recurrent_family_training(arch: str, dev, card: str, workdir: str) -> dict:
+    """Phase 18 (c): one of rwkv6-3b and zamba2-1.2b at full width and depth
+    through ``launch/train.py``'s path (``train()``, AdamW, warm-up-cosine,
+    remat "full"), B = 2, S = 4096, one microbatch, TRAIN_FAMILY_STEPS steps,
+    no checkpoint; then one step under the profiler and layer 0's gradients
+    against plain."""
+    cfg = get_config(arch)
+    args = tlaunch.parse_args([
+        "--arch", arch, "--steps", str(TRAIN_FAMILY_STEPS), "--seq-len", str(TRAIN_FAMILY_SEQ),
+        "--batch", str(TRAIN_FAMILY_BATCH), "--microbatches", "1", "--log-every", "1",
+        "--save-every", str(TRAIN_FAMILY_STEPS + 1), "--checkpoint-dir", workdir,
+        "--device", str(dev)])
+    held = {}
+
+    def run_steps(mark):
+        res = tlaunch.run(args, fault_hook=mark)
+        held["state"] = res["state"]
+        return [h["loss"] for h in res["history"]]
+
+    n_shared = cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    kind = "wkv6" if cfg.rwkv else "ssd"
+    expect = {kind: 2 * cfg.num_layers, f"{kind}_bwd": cfg.num_layers, "flash": 2 * n_shared}
+    print(f"  (c) {arch}: {cfg.param_count() / 1e9:.3f}e9 parameters, {cfg.num_layers} layers, "
+          f"B={TRAIN_FAMILY_BATCH} S={TRAIN_FAMILY_SEQ}, remat {cfg.remat_policy}, AdamW  "
+          f"[{time.perf_counter() - T_START:.1f} s]")
+    out = family_training(f"{arch} train()", cfg, run_steps, TRAIN_FAMILY_BATCH * TRAIN_FAMILY_SEQ,
+                          TRAIN_FAMILY_STEPS, card, expect)
+    state = held.pop("state")
+    step_fn = tzoo.make_train_step(cfg, AdamW(), device=dev)
+    batch = next(SyntheticLMStream(cfg.vocab_size, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH, seed=1))
+    out["profile"] = profile_train_step(arch, lambda: step_fn(state, batch), out["median_step_s"])
+    model = state["params"]
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["block"] = block_grads(arch, cfg, model, lm_tokens(cfg, GRAD_BLOCK_BATCH,
+                                                            TRAIN_FAMILY_SEQ, dev, seed=2))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 18 (d): the flash kernel as whisper-base's training path calls it:
+# not causal, with its lse, at B = 4 and train_4k's 4096 frames (the
+# encoder; the cross-attention's 448 queries against its keys), and at 1500
+# keys, whisper's own encoder length, whose last key tile is part masked.
+WHISPER_LSE_SHAPES = {
+    "encoder: B=4 S=4096 H=8 D=64": (WHISPER_TRAIN_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_SEQ),
+    "cross-attention: B=4 S_q=448 S_kv=4096 H=8 D=64": (WHISPER_TRAIN_BATCH, 448,
+                                                         TRAIN_FAMILY_SEQ),
+    "cross-attention: B=4 S_q=448 S_kv=1500 H=8 D=64": (WHISPER_TRAIN_BATCH, 448, 1500),
+}
+
+
+def whisper_lse_shapes(dev, card: str) -> dict:
+    """Phase 18 (d): the flash kernels (the routed wgmma and ``mma.sync``)
+    with ``return_lse`` and a key length of their own, at whisper-base's
+    training shapes, against the plain version's output and lse: the lse
+    within LSE_TOL (absolute and relative, as phase 16 (a)), the output
+    within FLASH_ROW_TOL a row and BF16_TOL elementwise (as phase 17 (f)),
+    and bit for bit the output without the lse."""
+    worst = 0.0
+    for label, (b, s, skv) in WHISPER_LSE_SHAPES.items():
+        q = bf16_randn((b, s, 8, 64), dev, s + skv)
+        k, v = (bf16_randn((b, skv, 8, 64), dev, skv + i) for i in range(2))
+        want, want_lse = flash_attention_plain(q, k, v, causal=False, q_chunk=PLAIN_Q_CHUNK,
+                                               return_lse=True)
+        for variant in (fkmod.variant_for(q.dtype, 64), "mma"):
+            out, lse = fkmod.flash_attention_cuda(q, k, v, causal=False, variant=variant,
+                                                  return_lse=True)
+            same = torch.equal(out, fkmod.flash_attention_cuda(q, k, v, causal=False,
+                                                               variant=variant))
+            lse_diff = (lse - want_lse).abs()
+            lse_ok = bool((lse_diff <= LSE_TOL + LSE_TOL * want_lse.abs()).all())
+            row = max_row_error(out, want)
+            diff = (out.float() - want.float()).abs()
+            within = bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all())
+            ok = lse_ok and same and row <= FLASH_ROW_TOL[q.dtype] and within
+            worst = max(worst, float(lse_diff.max()))
+            print(f"  flash ({variant}) with lse at whisper-base's {label}: lse max |kernel - "
+                  f"plain| {float(lse_diff.max()):.3e} (tol {LSE_TOL:g} abs + rel), output max row "
+                  f"error {row:.3e} (tol {FLASH_ROW_TOL[q.dtype]:g}), elementwise "
+                  f"{'ok' if within else 'FAIL'}, bit for bit the output without lse: {same} "
+                  f"{'ok' if ok else 'FAIL'}  [{card}]")
+            check(ok, f"the {variant} flash kernel's output or lse is wrong at whisper-base's {label}")
+            del out, lse, lse_diff, diff
+        del q, k, v, want, want_lse
+    torch.cuda.empty_cache()
+    return dict(max_lse_abs_err=worst)
+
+
+def attention_family_training(arch: str, dev, card: str) -> dict:
+    """Phase 18 (d): whisper-base at full size on ``input_specs(train_4k)``
+    (frames 4096, 448 tokens) with the batch cut, or internvl2-26b at full
+    width with its depth cut, B = 2 (2048 patch embeddings, then text):
+    ``make_train_step`` with AdamW, TRAIN_FAMILY_STEPS steps, then one step
+    under the profiler."""
+    cfg = get_config(arch)
+    b = WHISPER_TRAIN_BATCH if cfg.is_encoder_decoder else TRAIN_FAMILY_BATCH
+    vlm = cfg.frontend == "vision_stub"
+    if vlm:
+        cfg = dataclasses.replace(cfg, num_layers=VLM_TRAIN_LAYERS)
+    specs = input_specs(cfg, dataclasses.replace(SHAPES["train_4k"], global_batch=b))
+    print(f"  (d) {arch}: {cfg.num_layers} layers{f' of {get_config(arch).num_layers}' if vlm else ''}"
+          f", {cfg.param_count() / 1e9:.3f}e9 parameters; input_specs(train_4k) at B={b}: "
+          f"{ {k: tuple(v.shape) for k, v in specs.items()} }  [{time.perf_counter() - T_START:.1f} s]")
+    batch = {k: (bf16_randn(tuple(v.shape), dev, i) if v.dtype == torch.bfloat16
+                 else lm_tokens(cfg, *v.shape, dev, seed=i))
+             for i, (k, v) in enumerate(specs.items())}
+    state = init_adamw_state(init_model(cfg, seed=0, device=dev), lr=3e-4)
+    step_fn = tzoo.make_train_step(cfg, AdamW(), device=dev)
+
+    def run_steps(mark):
+        losses = []
+        for i in range(TRAIN_FAMILY_STEPS):
+            mark(i)
+            _, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        return losses
+
+    # Flash runs where the longer of S_q and S_kv passes 2048 ("auto"): every
+    # layer of internvl2; whisper's encoder and cross-attention, not its
+    # decoder's self-attention over 448 tokens.  Each twice a step (remat).
+    layers = cfg.encoder_layers + cfg.num_layers
+    tokens = b * (TRAIN_FAMILY_SEQ if not cfg.is_encoder_decoder else cfg.max_target_len)
+    out = family_training(f"{arch} make_train_step", cfg, run_steps, tokens, TRAIN_FAMILY_STEPS,
+                          card, {"flash": 2 * layers})
+    out["profile"] = profile_train_step(arch, lambda: step_fn(state, batch), out["median_step_s"])
+    out["layers"] = cfg.num_layers
+    del state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_training_phase(dev, card: str) -> dict:
+    """Phase 18: training the RWKV-6, hybrid, encoder-decoder and VLM families."""
+    t_start = time.perf_counter()
+    phase("phase 18: training the RWKV-6, hybrid, encoder-decoder and VLM families on the card")
+    print("  (a) the backward kernels against their plain versions")
+    result = {"bwd_cases_max_err": bwd_cases(dev)}
+    result["bwd_full"] = {kind: bwd_full_shape(kind, card) for kind in BWD}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) each family's reduced config, card vs CPU  [{time.perf_counter() - T_START:.1f} s]")
+    result["reduced"] = reduced_family_steps(dev, card)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train18_")
+    try:
+        result["train"] = {arch: recurrent_family_training(arch, dev, card,
+                                                           str(Path(workdir, arch)))
+                           for arch in ("rwkv6-3b", "zamba2-1.2b")}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"  (d) whisper-base's flash shapes with the lse  [{time.perf_counter() - T_START:.1f} s]")
+    result["whisper_lse"] = whisper_lse_shapes(dev, card)
+    for arch in ("whisper-base", VLM_ARCH):
+        result["train"][arch] = attention_family_training(arch, dev, card)
+    result["seconds"] = time.perf_counter() - t_start
+    print(f"  phase 18 took {result['seconds']:.1f} s")
+    return result
+
+
+def bwd_entries(trained: dict) -> list[dict]:
+    """The ``kernels`` line's entries of the two backward kernels, from phase 18."""
+    out = []
+    for kind, name, arch in (("wkv6", "wkv6_scan_bwd_kernel", "rwkv6-3b"),
+                             ("ssd", "ssd_scan_bwd_kernel", "zamba2-1.2b")):
+        full = trained["bwd_full"][kind]
+        b, s, h, hd = full["shape"]
+        by_path = {f"train(), {arch} full width (phase 18c)":
+                       trained["train"][arch]["launches"][f"{kind}_bwd"],
+                   "reduced train steps, card vs CPU (phase 18b)": sum(
+                       r["launches"][f"{kind}_bwd"] for r in trained["reduced"].values())}
+        out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/recurrence/csrc/recurrence_bwd.cu",
+            replaces=("src/repro/models/rwkv.py:154" if kind == "wkv6"
+                      else "src/repro/models/ssm.py:108"),
+            replaces_note="the derivative of that lax.scan through _chunked_scan's checkpoints "
+                          "(src/repro/models/rwkv.py:77-102); no Pallas kernel",
+            launches=by_path[f"train(), {arch} full width (phase 18c)"],
+            launches_by_path=by_path, max_abs_err=full["max_abs_err"],
+            max_err_per_head=full["rel_err"],
+            cases_max_err=trained["bwd_cases_max_err"][kind], ms=full["ms"],
+            times_ms=full["times_ms"], forward_ms=full["fwd_ms"], plain_ms=full["plain_ms"],
+            bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
+            per=f"one layer's scan backward, B={b} S={s} H={h} float32, {arch}'s training shape"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -3789,6 +4396,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         families = families_phase(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        families["trained"] = family_training_phase(dev, card)
         gc.collect()
         torch.cuda.empty_cache()
         mttkrp_entry, nell2, lex_fits, eager_fits = cp_als_phases(dev, card, draw)
@@ -3901,7 +4511,10 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
         "prefill, whisper-base (phase 17d)": fams["whisper-base"]["prefill"]["launches"]["flash"],
         f"prefill, {VLM_ARCH} {VLM_LAYERS} layers (phase 17e)":
             fams[VLM_ARCH]["prefill"]["launches"]["flash"],
-        **decode_launches(fams, "flash")}
+        **decode_launches(fams, "flash"),
+        **{f"train steps, {arch} (phase 18{'c' if arch == 'zamba2-1.2b' else 'd'})":
+               families["trained"]["train"][arch]["launches"]["flash"]
+           for arch in ("zamba2-1.2b", "whisper-base", VLM_ARCH)}}
     flash_entry["phase17_shapes"] = families["flash_shapes"]
     flash_entry["launches"] = sum(flash_entry["launches_by_path"].values())
     flash_entry["lse_max_abs_err"] = trained["lse"]["max_abs_err"]
@@ -3914,7 +4527,8 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
         "stacked_plain_ms", "stacked_bound_ms")}
     total_s = time.perf_counter() - T_START
     print(f"total {total_s:.1f} s")
-    kernels = [mttkrp_entry, tile_entry, flash_entry, *scan_entries(families)]
+    kernels = [mttkrp_entry, tile_entry, flash_entry, *scan_entries(families),
+               *bwd_entries(families["trained"])]
     print(json.dumps({"phase15": contracts}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,24 +1,30 @@
-"""Wrappers of the hand-written CUDA recurrence kernels (``csrc/recurrence.cu``).
+"""Wrappers of the hand-written CUDA recurrence kernels (``csrc/recurrence.cu``
+and ``csrc/recurrence_bwd.cu``).
 
 ``wkv6_scan_cuda`` and ``ssd_scan_cuda`` each launch one kernel that runs a
 whole sequence's recurrence on the card: the WKV-6 state update of RWKV-6
-and the Mamba2 state update.  They replace no Pallas kernel: the JAX package
-runs both with ``lax.scan``, one compiled loop on the device, and these are
-the port's counterpart of that loop (the source's note says what bounds
-them).
+and the Mamba2 state update.  ``wkv6_scan_bwd_cuda`` and
+``ssd_scan_bwd_cuda`` launch their backward passes: the gradients of every
+input against the output's gradient, the decays' in their log.  They replace
+no Pallas kernel: the JAX package runs both recurrences with ``lax.scan``,
+one compiled loop on the device, and differentiates it; these are the
+port's counterpart of that loop and of its derivative (the sources' notes
+say how they work and what bounds them).
 
-Both kernels are chunked scans whose chunk products run on the tensor
-cores in 3xTF32; they compute the recurrence from a zero state in float32.
+The forward kernels are chunked scans whose chunk products run on the
+tensor cores in 3xTF32; the backward kernels run 32-step chunks in reverse
+on the CUDA cores, in float32, from chunk-start states that their own first
+pass writes into a scratch buffer.  All compute from a zero state.
 
 They take CUDA tensors only, float32, with a contiguous last dimension
-(any other strides: views whose bases or strides are not on 16 bytes are
-staged 4 bytes at a time), and check device, dtype and shape, raising on
-anything the kernels do not take; there is no fallback.  CPU tensors go to
-the plain versions (``ref.py``) one level up, in ``ops``.  Neither has a
-backward: inputs that require grad under grad mode are refused.
+(any other strides; the forward kernels stage views whose bases or strides
+are not on 16 bytes 4 bytes at a time), and check device, dtype and shape,
+raising on anything the kernels do not take; there is no fallback.  CPU
+tensors go to the plain versions (``ref.py``) one level up, in ``ops``,
+where the autograd functions pair each forward with its backward.
 
-``wkv6_scan_cuda.launches`` and ``ssd_scan_cuda.launches`` count each
-kernel's launches in this process; ``reset_launch_counts`` sets both to 0.
+``<wrapper>.launches`` counts each kernel's launches in this process;
+``reset_launch_counts`` sets all four to 0.
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["HEAD_DIM", "SSD_STATE", "check_ssd_inputs", "check_wkv_inputs", "reset_launch_counts",
-           "ssd_scan_cuda", "wkv6_scan_cuda"]
+           "ssd_scan_bwd_cuda", "ssd_scan_cuda", "wkv6_scan_bwd_cuda", "wkv6_scan_cuda"]
 
 HEAD_DIM = 64  # rwkv's WKV head dim; mamba's head dim
 SSD_STATE = 64  # the Mamba2 state size the SSD kernel is built for
 MAX_BATCH = 65_535  # gridDim.y
+CHUNK = 32  # the backward kernels' chunk: one scratch state a chunk
 
 
 def check_wkv_inputs(r, k, v, w, u) -> None:
@@ -78,10 +85,29 @@ def _check_cuda(kernel: str, tensors: dict) -> torch.device:
             raise ValueError(f"{name} is on {t.device}, the others on {dev}")
         if t.dim() and t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"{name} must have a contiguous last dimension; strides {t.stride()}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(f"{kernel} has no backward: the recurrence kernels run "
-                                  "the forward pass only (ROADMAP.md Queue 1 item 13)")
     return dev
+
+
+def _check_dy(dy: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """dy must be float32 of y's shape (B, S, H, 64); returned contiguous."""
+    if tuple(dy.shape) != tuple(like.shape[:3]) + (HEAD_DIM,):
+        raise ValueError(f"dy must be {tuple(like.shape[:3]) + (HEAD_DIM,)}; got {tuple(dy.shape)}")
+    if dy.dtype != torch.float32:
+        raise TypeError(f"dy is {dy.dtype}; the scan takes float32")
+    return dy.contiguous()
+
+
+def _bwd_library():
+    lib = build.load("recurrence_bwd")
+    if lib.wkv6_scan_bwd_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.wkv6_scan_bwd_launch.argtypes = [p] * 13 + [i, i, i, p]
+        lib.wkv6_scan_bwd_launch.restype = i
+        lib.ssd_scan_bwd_launch.argtypes = [p] * 11 + [i, i, i, i, p]
+        lib.ssd_scan_bwd_launch.restype = i
+        lib.recurrence_bwd_error_string.argtypes = [i]
+        lib.recurrence_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _library():
@@ -97,9 +123,9 @@ def _library():
     return lib
 
 
-def _raise_on(lib, err: int, kernel: str) -> None:
+def _raise_on(error_string, err: int, kernel: str) -> None:
     if err != 0:
-        msg = lib.recurrence_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err} ({msg})")
 
 
@@ -131,7 +157,7 @@ def wkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), y.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), b, s, h,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "wkv6_scan")
+    _raise_on(lib.recurrence_error_string, err, "wkv6_scan")
     wkv6_scan_cuda.launches += 1
     return y
 
@@ -159,15 +185,90 @@ def ssd_scan_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
             decay.data_ptr(), dtx.data_ptr(), bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), b, s, h, SSD_STATE,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "ssd_scan")
+    _raise_on(lib.recurrence_error_string, err, "ssd_scan")
     ssd_scan_cuda.launches += 1
     return y
 
 
+def _scratch(b: int, s: int, h: int, dev) -> torch.Tensor:
+    """The backward kernels' chunk-start states: B * H * ceil(S / 32) of 64 x 64."""
+    return torch.empty(b * h * -(-s // CHUNK) * HEAD_DIM * HEAD_DIM, dtype=torch.float32,
+                       device=dev)
+
+
+def wkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                       u: torch.Tensor, dy: torch.Tensor):
+    """Launch the WKV-6 scan's backward against ``dy`` (B, S, H, 64): returns
+    ``(dr, dk, dv, dlogw, du)``, the first four (B, S, H, 64) contiguous,
+    dlogw the gradient of log w, du (H, 64).  Inputs as ``wkv6_scan_cuda``
+    takes them, dy float32 (copied if not contiguous).  Holds a scratch of
+    B * H * ceil(S / 32) * 16 KB for the launch.  Runs on the current
+    stream, not synchronised."""
+    dev = _check_cuda("wkv6_scan_bwd_cuda", dict(r=r, k=k, v=v, w=w, u=u, dy=dy))
+    check_wkv_inputs(r, k, v, w, u)
+    dy = _check_dy(dy, r)
+    b, s, h, _ = r.shape
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
+    outs = [torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev) for _ in range(4)]
+    du_part = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=dev)
+    if outs[0].numel() == 0:
+        return (*outs, torch.zeros((h, HEAD_DIM), dtype=torch.float32, device=dev))
+    u = u.contiguous()
+    lib = _bwd_library()
+    strides = _strides(((r, k, v, w), 3))
+    scratch = _scratch(b, s, h, dev)
+    with torch.cuda.device(dev):
+        err = lib.wkv6_scan_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), dy.data_ptr(),
+            *(o.data_ptr() for o in outs), du_part.data_ptr(), scratch.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), b, s, h,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib.recurrence_bwd_error_string, err, "wkv6_scan_bwd")
+    wkv6_scan_bwd_cuda.launches += 1
+    return (*outs, du_part.sum(0))
+
+
+def ssd_scan_bwd_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
+                      cm: torch.Tensor, dy: torch.Tensor):
+    """Launch the Mamba2 state scan's backward against ``dy`` (B, S, H, 64):
+    returns ``(dlogdec (B, S, H), ddtx, dbm_h, dcm_h)``, the last three
+    (B, S, H, 64) contiguous; dlogdec is the gradient of log decay, dbm_h
+    and dcm_h each head's share of the gradient of the shared bm and cm
+    (their sum over H is it).  Inputs as ``ssd_scan_cuda`` takes them, dy
+    float32.  Runs on the current stream, not synchronised."""
+    dev = _check_cuda("ssd_scan_bwd_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm, dy=dy))
+    check_ssd_inputs(decay, dtx, bm, cm)
+    dy = _check_dy(dy, dtx)
+    b, s, h, _ = dtx.shape
+    if bm.shape[-1] != SSD_STATE:
+        raise ValueError(f"state size {bm.shape[-1]}; the SSD kernel is built for {SSD_STATE}")
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
+    dlog = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    outs = [torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev) for _ in range(3)]
+    if dlog.numel() == 0:
+        return (dlog, *outs)
+    lib = _bwd_library()
+    strides = _strides(((decay, dtx), 3), ((bm, cm), 2))
+    scratch = _scratch(b, s, h, dev)
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_bwd_launch(
+            decay.data_ptr(), dtx.data_ptr(), bm.data_ptr(), cm.data_ptr(), dy.data_ptr(),
+            dlog.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), b, s, h, SSD_STATE,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib.recurrence_bwd_error_string, err, "ssd_scan_bwd")
+    ssd_scan_bwd_cuda.launches += 1
+    return (dlog, *outs)
+
+
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counts to 0."""
+    """Set the four kernels' launch counts to 0."""
     wkv6_scan_cuda.launches = 0
     ssd_scan_cuda.launches = 0
+    wkv6_scan_bwd_cuda.launches = 0
+    ssd_scan_bwd_cuda.launches = 0
 
 
 reset_launch_counts()

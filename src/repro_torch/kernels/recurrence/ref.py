@@ -25,8 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CHUNK", "HEAD_DIM", "SUB", "ssd_scan_chunked_ref", "ssd_scan_ref",
-           "wkv6_scan_chunked_ref", "wkv6_scan_ref"]
+__all__ = ["CHUNK", "HEAD_DIM", "SUB", "ssd_scan_bwd_chunked_ref", "ssd_scan_bwd_ref",
+           "ssd_scan_chunked_ref", "ssd_scan_ref", "wkv6_scan_bwd_chunked_ref",
+           "wkv6_scan_bwd_ref", "wkv6_scan_chunked_ref", "wkv6_scan_ref"]
 
 HEAD_DIM = 64
 CHUNK = 32  # time steps a chunk, as the CUDA kernels cut the sequence
@@ -210,3 +211,208 @@ def ssd_scan_chunked_ref(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tenso
         y[:, :, c] = y[:, :, c] + pre[:, :, c] * (cq[:, :, c] @ state)
         state = state * p_l[:, :, c, None, None] + bq[:, :, c].transpose(-1, -2) @ xx[:, :, c]
     return y.reshape(b, h, nc * chunk, hd)[:, :, :s].transpose(1, 2).contiguous()
+
+
+# ---- the backward ----
+
+
+def _grads_of(fn, inputs: list, dy: torch.Tensor) -> list:
+    """autograd's gradients of fn(*inputs) against dy in float64 (the step
+    loops' states take the inputs' dtype); zeros for unused inputs."""
+    with torch.enable_grad():
+        leaves = [t.detach().double().requires_grad_() for t in inputs]
+        return list(torch.autograd.grad(fn(*leaves), leaves, dy.double(), allow_unused=True,
+                                        materialize_grads=True))
+
+
+def wkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                      u: torch.Tensor, dy: torch.Tensor):
+    """The backward kernel's plain version: autograd through ``wkv6_scan_ref``
+    against dy, in float64, ``(dr, dk, dv, dlogw, du)`` as
+    ``wkv6_scan_bwd_cuda`` returns them (float32); the gradient of log w is
+    w times that of w (the chain rule through w = exp(log w), no division)."""
+    dr, dk, dv, dw, du = _grads_of(wkv6_scan_ref, [r, k, v, w, u], dy)
+    return tuple(g.float() for g in (dr, dk, dv, w.double() * dw, du))
+
+
+def ssd_scan_bwd_ref(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
+                     cm: torch.Tensor, dy: torch.Tensor):
+    """The backward kernel's plain version: autograd through ``ssd_scan_ref``
+    against dy, in float64, ``(dlogdec, ddtx, dbm, dcm)`` (float32), dbm and
+    dcm (B, S, N), the gradients of the shared bm and cm (the kernel's
+    per-head ones summed over H)."""
+    ddec, ddtx, dbm, dcm = _grads_of(ssd_scan_ref, [decay, dtx, bm, cm], dy)
+    return tuple(g.float() for g in (decay.double() * ddec, ddtx, dbm, dcm))
+
+
+# ---- the backward, in the backward kernels' chunked form ----
+#
+# ``wkv6_scan_bwd_chunked_ref`` and ``ssd_scan_bwd_chunked_ref`` are
+# ``csrc/recurrence_bwd.cu``'s algorithm in plain float32 (its note derives
+# it): the chunk-start states from a forward pass over the chunks, then a
+# reverse pass that carries G, the gradient of the state at a chunk's end,
+# from each chunk to the one before it.  Inside a chunk every gradient is a
+# product of the chunk's inputs, its start state, G and the segment products
+# of the decays (running products: nothing divides by a decay).  The decays'
+# gradient is taken in their log, per step t and key channel (per head for
+# the SSD), as sums of products that each contain the decay of step t:
+#
+#   WKV-6:  dlogw_t = sum_{s<t<tau} M[tau, s] + sum_{tau>t} r_tau * dr0_tau
+#                     + sum_{s<t} k_s * dke_s + P_L * rowsum(G * S_start)
+#   SSD:    dlogdec_t = sum_{s<t<=tau} M[tau, s] + sum_{tau>=t} c_tau . dc0_tau
+#                     + sum_{s<t} b_s . dbe_s + P_L * sum(G * h_start)
+#
+# where M[tau, s] is the product of a pair of steps inside the chunk
+# (WKV-6: (dy_tau . v_s) r_tau k_s prod_{s<sigma<tau} w, per channel; SSD:
+# Ls[tau, s] (dy_tau . x_s) (c_tau . b_s)), dr0 (dc0) the part of dr (dc)
+# through the chunk's start state and dke (dbe) the part of dk (db) through
+# its end state; every sum runs inside one chunk and each is summed
+# directly, never as the difference of two larger sums (which would give a
+# gradient that is 0, or small beside its terms, as float32 noise).  Nothing here is on the main path: the
+# CPU tests hold both against autograd through the step loops and against
+# ``jax.vjp`` of the JAX package's scans.
+
+
+def _chunk_rows(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``_chunked`` without the sub-chunk split: (B, H, n_chunks, chunk, X)."""
+    return _chunked(t, chunk).flatten(-3, -2)
+
+
+def _unchunk(t: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, H, n_chunks, chunk, X) back to (B, S, H, X)."""
+    b, h, nc, c, x = t.shape
+    return t.reshape(b, h, nc * c, x)[:, :, :s].transpose(1, 2).contiguous()
+
+
+def _excl_cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """prod_{tau < t} x_tau along ``dim``, by running products."""
+    out = torch.ones_like(x)
+    n = x.shape[dim]
+    for t in range(1, n):
+        out.select(dim, t).copy_(out.select(dim, t - 1) * x.select(dim, t - 1))
+    return out
+
+
+def _pair_products(x: torch.Tensor, inclusive: bool) -> torch.Tensor:
+    """M[..., t, s, :] = prod of x over s < tau < t (``inclusive``: s < tau <= t)
+    for s < t (s <= t when inclusive), else 0; x (..., L, X) -> (..., L, L, X),
+    built gap by gap as running products."""
+    n = x.shape[-2]
+    m = torch.zeros(x.shape[:-2] + (n, n, x.shape[-1]), dtype=x.dtype, device=x.device)
+    run = torch.ones_like(x)  # at gap d: run[s] = the product for t = s + d
+    first = 0 if inclusive else 1
+    for d in range(first, n):
+        if d > first:
+            step = x[..., d:, :] if inclusive else x[..., d - 1:n - 1, :]
+            run = run[..., :n - d, :] * step
+        idx = torch.arange(n - d, device=x.device)
+        m[..., idx + d, idx, :] = run[..., :n - d, :]
+    return m
+
+
+def _suffix(x: torch.Tensor, inclusive: bool) -> torch.Tensor:
+    """sum_{tau >= t} (``inclusive``) or sum_{tau > t} of x along dim -2."""
+    incl = x.flip(-2).cumsum(-2).flip(-2)
+    return incl if inclusive else F.pad(incl[..., 1:, :], [0, 0, 0, 1])
+
+
+def _prefix_excl(x: torch.Tensor) -> torch.Tensor:
+    """sum_{s < t} of x along dim -2."""
+    return F.pad(x.cumsum(-2)[..., :-1, :], [0, 0, 1, 0])
+
+
+def wkv6_scan_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
+                              chunk: int = CHUNK):
+    """The gradients of ``wkv6_scan_ref``'s output against ``dy`` (B, S, H, 64):
+    ``(dr, dk, dv, dlogw, du)``, dr, dk, dv and the gradient of log w
+    (B, S, H, 64), du (H, 64); from a zero state, in float32 (float64 for
+    float64 inputs)."""
+    b, s, h, hd = r.shape
+    dt = torch.promote_types(r.dtype, torch.float32)
+    rc, kc, vc, wc, gy = (_chunk_rows(t.to(dt), chunk) for t in (r, k, v, w, dy))
+    p = _excl_cumprod(wc, -2)  # prod_{start <= tau < t} w
+    p_l = p[..., -1, :] * wc[..., -1, :]  # (B, H, nc, 64)
+    q = _excl_cumprod(wc.flip(-2), -2).flip(-2)  # prod_{s < tau < end} w
+    nc = rc.shape[2]
+    starts = []
+    state = torch.zeros((b, h, hd, hd), dtype=dt, device=r.device)
+    for c in range(nc):  # the chunk-start states, forward
+        starts.append(state)
+        state = p_l[:, :, c, :, None] * state + (kc[:, :, c] * q[:, :, c]).transpose(-1, -2) @ vc[:, :, c]
+    s0 = torch.stack(starts, 2)  # (B, H, nc, 64, 64)
+    gs = [None] * nc
+    g = torch.zeros_like(state)
+    for c in reversed(range(nc)):  # G at each chunk's end, backward
+        gs[c] = g
+        g = p_l[:, :, c, :, None] * g + (rc[:, :, c] * p[:, :, c]).transpose(-1, -2) @ gy[:, :, c]
+    g = torch.stack(gs, 2)
+    wp = _pair_products(wc, inclusive=False)  # (B, H, nc, t, s, 64)
+    dmat = gy @ vc.transpose(-1, -2)  # D[t, s] = dy_t . v_s
+    diag = torch.diagonal(dmat, dim1=-2, dim2=-1)[..., None]  # D[t, t]
+    uu = u.to(dt)[None, :, None, None, :]
+    amat = torch.einsum("...ti,...si,...tsi->...ts", rc, kc, wp)
+    beta = (rc * uu * kc).sum(-1, keepdim=True)
+    dv = amat.transpose(-1, -2) @ gy + beta * gy + (kc * q) @ g
+    dr_state = p * (gy @ s0.transpose(-1, -2)) + torch.einsum("...ts,...tsi,...si->...ti", dmat, wp, kc)
+    dk_in = torch.einsum("...ts,...tsi,...ti->...si", dmat, wp, rc)
+    dk_end = q * (vc @ g.transpose(-1, -2))
+    dr = dr_state + uu * kc * diag
+    dk = dk_in + dk_end + uu * rc * diag
+    du = (rc * kc * diag).sum((0, 2, 3))
+    # The pairs s < t < tau: M[tau, s] summed over s < t, then over tau > t.
+    m = torch.einsum("...ts,...tsi,...ti,...si->...tsi", dmat, wp, rc, kc)  # [tau, s]
+    below = F.pad(m.cumsum(-2)[..., :-1, :], [0, 0, 1, 0])  # [tau, t]: sum_{s < t}
+    later = torch.triu(torch.ones(chunk, chunk, dtype=torch.bool, device=r.device), 1)
+    pairs = (below.transpose(-3, -2) * later[..., None]).sum(-2)  # [t]: sum_{tau > t}
+    start = rc * p * (gy @ s0.transpose(-1, -2))  # r_tau P_tau (S0 dy_tau)
+    dlogw = (pairs + _suffix(start, inclusive=False) + _prefix_excl(kc * dk_end)
+             + (p_l * (g * s0).sum(-1))[..., None, :])
+    return (*(_unchunk(t, s) for t in (dr, dk, dv, dlogw)), du)
+
+
+def ssd_scan_bwd_chunked_ref(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
+                             cm: torch.Tensor, dy: torch.Tensor, *, chunk: int = CHUNK):
+    """The gradients of ``ssd_scan_ref``'s output against ``dy`` (B, S, H, 64):
+    ``(dlogdec (B, S, H), ddtx (B, S, H, 64), dbm, dcm)``, with dbm and dcm
+    per head, (B, S, H, N) (their sum over H is the gradient of the shared
+    bm and cm); from a zero state, in float32 (float64 for float64 inputs)."""
+    b, s, h, hd = dtx.shape
+    n = bm.shape[-1]
+    dt = torch.promote_types(dtx.dtype, torch.float32)
+    ac = _chunk_rows(decay.to(dt)[..., None], chunk)  # (B, H, nc, L, 1)
+    xc, gy = (_chunk_rows(t.to(dt), chunk) for t in (dtx, dy))
+    bc, cc = (_chunk_rows(t.to(dt), chunk) for t in (bm, cm))  # (B, 1, nc, L, N)
+    pre = _excl_cumprod(ac, -2) * ac  # prod_{start <= tau <= t}
+    p_l = pre[..., -1, :]  # (B, H, nc, 1)
+    suf = _excl_cumprod(ac.flip(-2), -2).flip(-2)  # prod_{s < tau < end}
+    nc = xc.shape[2]
+    starts = []
+    state = torch.zeros((b, h, hd, n), dtype=dt, device=dtx.device)
+    for c in range(nc):
+        starts.append(state)
+        state = p_l[:, :, c, :, None] * state + (xc[:, :, c] * suf[:, :, c]).transpose(-1, -2) @ bc[:, :, c]
+    h0 = torch.stack(starts, 2)  # (B, H, nc, 64, N)
+    gs = [None] * nc
+    g = torch.zeros_like(state)
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = p_l[:, :, c, :, None] * g + (gy[:, :, c] * pre[:, :, c]).transpose(-1, -2) @ cc[:, :, c]
+    g = torch.stack(gs, 2)
+    lm = _pair_products(ac, inclusive=True)[..., 0]  # (B, H, nc, t, s)
+    le = lm * (gy @ xc.transpose(-1, -2))  # Ls * E, E[t, s] = dy_t . x_s
+    cb = lm * (cc @ bc.transpose(-1, -2))  # Ls * C B^T
+    dc_start = pre * (gy @ h0)
+    dc = dc_start + le @ bc
+    db_in = le.transpose(-1, -2) @ cc
+    db_end = suf * (xc @ g)
+    dx = cb.transpose(-1, -2) @ gy + suf * (bc @ g.transpose(-1, -2))
+    # The pairs s < t <= tau inside the chunk, summed directly: M[tau, s] =
+    # Ls E (C B^T), its column suffixes from t, summed over s < t.
+    pairs = _suffix(cb * (gy @ xc.transpose(-1, -2)), inclusive=True)  # (.., t, s)
+    inner = (torch.tril(pairs, diagonal=-1)).sum(-1, keepdim=True)
+    dlog = (_suffix((cc * dc_start).sum(-1, keepdim=True), inclusive=True) + inner
+            + _prefix_excl((bc * db_end).sum(-1, keepdim=True))
+            + (p_l * (g * h0).sum((-1, -2))[..., None])[..., None, :])
+    return (_unchunk(dlog, s)[..., 0], _unchunk(dx, s), _unchunk(db_in + db_end, s),
+            _unchunk(dc, s))

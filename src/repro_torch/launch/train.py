@@ -4,7 +4,12 @@
 runs the fault-tolerant loop (``runtime.train_loop``) on the GPU with
 AdamW and a warm-up-cosine schedule; ``--device cpu`` runs it on the CPU.
 Weights are random, from ``init_model(seed=0)``; tokens come from
-``SyntheticLMStream``.
+``SyntheticLMStream``.  It trains what JAX's launcher trains: every family
+whose batch is tokens and labels (the dense, MoE, RWKV-6 and hybrid
+families, and the VLM without its optional patch embeddings).  The
+encoder-decoder family (whisper-base) needs audio frames, which the stream
+does not give, and is refused; ``make_train_step`` trains it on batches
+that carry them.
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ def run(args: argparse.Namespace, **train_kwargs) -> dict:
         cfg = reduced_config(args.arch, **over)
     else:
         cfg = get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(f"{cfg.name} training requires audio frames; SyntheticLMStream gives "
+                         "tokens and labels only (train it through make_train_step on batches "
+                         "with frames)")
     print(f"[train] arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
           f"(active {cfg.active_param_count()/1e6:.1f}M) device={args.device}")
     stream = SyntheticLMStream(

@@ -4,8 +4,10 @@
 ``input_specs`` gives tensors on the ``meta`` device, PyTorch's shapes
 without storage, where JAX gives ``ShapeDtypeStruct``s.  JAX's
 ``_ubatch_constraint`` is a sharding hint, a no-op outside a mesh, and is
-not ported.  The loss and train steps refuse the RWKV, hybrid,
-encoder-decoder and frontend families (ROADMAP.md Queue 1 item 13).
+not ported.  The loss and train steps take every family; a batch carries
+``frames`` for the encoder-decoder family and may carry ``prefix_embeds``
+for the vision frontend, as ``input_specs`` gives them, and microbatches
+split them along their first axis with the tokens.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     Transformer,
-    check_trainable,
     cross_entropy_loss,
     decode_step,
     forward,
@@ -33,9 +34,7 @@ __all__ = ["init_decode_state", "init_model", "input_specs", "make_decode_fn", "
 
 def make_loss_fn(cfg: ModelConfig):
     """``loss_fn(params, batch) -> float32 loss``: ``cross_entropy_loss`` of
-    the logits against ``batch["labels"]``; ``params`` is a model or a tree.
-    Refuses the families that do not train yet (``check_trainable``)."""
-    check_trainable(cfg)
+    the logits against ``batch["labels"]``; ``params`` is a model or a tree."""
 
     def loss_fn(params, batch):
         logits = forward_params(param_tree(params), cfg, batch)
@@ -71,7 +70,6 @@ def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int =
     (one host sync a step), so a step that raises leaves the state as it was
     and can be replayed.
     """
-    check_trainable(cfg)
     dev = resolve_device(device)
     loss_fn = make_loss_fn(cfg)
     if num_microbatches < 1:

@@ -8,9 +8,11 @@ Per head (head_dim 64) the WKV state S (64 x 64) evolves as
 
 with ``w_t = exp(-exp(w_base + lora_w(x_t)))``.  Token shift mixes each
 projection's input with the previous token's.  The sequence path runs the
-recurrence through ``kernels.recurrence.ops.wkv6_scan``: on the card one
-hand-written kernel for the whole sequence, where JAX runs ``lax.scan``; on
-the CPU its plain per-step loop.  Decode is one state update in plain
+recurrence through ``kernels.recurrence.ops.wkv6_scan_logw``, which takes
+log w = -exp(w_base + lora) and forms w from it: on the card one
+hand-written kernel for the whole sequence, where JAX runs ``lax.scan``,
+and under autograd its backward kernel; on the CPU its plain per-step
+loop.  Decode is one state update in plain
 PyTorch, as JAX's is plain ``jnp``.  Weights stay in ``cfg.param_dtype``
 and are cast to the activations' dtype at use, as in JAX.
 """
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.recurrence.ops import wkv6_scan
+from repro_torch.kernels.recurrence.ops import wkv6_scan_logw
 from repro_torch.models.layers import init_dense, normal
 
 __all__ = [
@@ -96,7 +98,7 @@ def _mix(x: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 
 def _projections(params: dict, x: torch.Tensor, xs: torch.Tensor):
-    """r, k, v, g in x's dtype and the float32 decay w, each (..., d)."""
+    """r, k, v, g in x's dtype and the float32 log decay log w, each (..., d)."""
     dt = x.dtype
     r = _mix(x, xs, params["mu_r"]) @ params["wr"].to(dt)
     k = _mix(x, xs, params["mu_k"]) @ params["wk"].to(dt)
@@ -104,8 +106,8 @@ def _projections(params: dict, x: torch.Tensor, xs: torch.Tensor):
     g = _mix(x, xs, params["mu_g"]) @ params["wg"].to(dt)
     wx = _mix(x, xs, params["mu_w"])
     lora = torch.tanh(wx @ params["w_lora_a"].to(dt)) @ params["w_lora_b"].to(dt)
-    w = torch.exp(-torch.exp(params["w_base"].float() + lora.float()))
-    return r, k, v, g, w
+    log_w = -torch.exp(params["w_base"].float() + lora.float())
+    return r, k, v, g, log_w
 
 
 def _group_norm_out(params: dict, y: torch.Tensor, g: torch.Tensor, dt: torch.dtype):
@@ -122,10 +124,10 @@ def rwkv_time_mix_seq(params: dict, cfg, x: torch.Tensor, *, x_prev=None) -> tor
     """Full-sequence WKV.  x: (B, S, d) -> (B, S, d)."""
     b, s, d = x.shape
     heads = d // HEAD_DIM
-    r, k, v, g, w = _projections(params, x, _token_shift(x, x_prev))
+    r, k, v, g, log_w = _projections(params, x, _token_shift(x, x_prev))
     rh, kh, vh = (t.reshape(b, s, heads, HEAD_DIM).float() for t in (r, k, v))
     u = params["u_bonus"].float().reshape(heads, HEAD_DIM)
-    y = wkv6_scan(rh, kh, vh, w.reshape(b, s, heads, HEAD_DIM), u)
+    y = wkv6_scan_logw(rh, kh, vh, log_w.reshape(b, s, heads, HEAD_DIM), u)
     return _group_norm_out(params, y, g, x.dtype)
 
 
@@ -143,9 +145,9 @@ def rwkv_time_mix_step(params: dict, cfg, xt: torch.Tensor, wkv_state: torch.Ten
     xt)``, the new state a new tensor in ``wkv_state``'s dtype."""
     b, d = xt.shape
     heads = d // HEAD_DIM
-    r, k, v, g, w = _projections(params, xt, x_prev.to(xt.dtype))
+    r, k, v, g, log_w = _projections(params, xt, x_prev.to(xt.dtype))
     rh, kh, vh = (t.reshape(b, heads, HEAD_DIM).float() for t in (r, k, v))
-    wh = w.reshape(b, heads, HEAD_DIM)
+    wh = torch.exp(log_w).reshape(b, heads, HEAD_DIM)
     u = params["u_bonus"].float().reshape(heads, HEAD_DIM)
     state = wkv_state.float()
     kv = kh[..., :, None] * vh[..., None, :]

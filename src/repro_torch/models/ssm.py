@@ -7,9 +7,11 @@ The simplified SSD recurrence with a multi-head state:
     y_t = C_t · h_t + D * x_t
 
 State: (batch, heads, head_dim 64, d_state).  The sequence path runs the
-recurrence through ``kernels.recurrence.ops.ssd_scan``: on the card one
-hand-written kernel for the whole sequence, where JAX runs ``lax.scan``;
-on the CPU its plain per-step loop.  Decode is one state update in plain
+recurrence through ``kernels.recurrence.ops.ssd_scan_logdec``, which takes
+the decay's log, softplus(dt) * A, and forms the decay from it: on the card
+one hand-written kernel for the whole sequence, where JAX runs
+``lax.scan``, and under autograd its backward kernel; on the CPU its plain
+per-step loop.  Decode is one state update in plain
 PyTorch, as JAX's is plain ``jnp``.
 """
 
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.recurrence.ops import ssd_scan
+from repro_torch.kernels.recurrence.ops import ssd_scan_logdec
 from repro_torch.models.layers import init_dense, normal
 
 __all__ = ["CONV_K", "init_mamba", "init_mamba_state", "mamba_decode_step", "mamba_seq"]
@@ -77,10 +79,11 @@ def _causal_conv(seq: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 def _dt_decay(params: dict, dt: torch.Tensor):
-    """softplus(dt + dt_bias) and the decay exp(softplus(.) * A), float32."""
+    """softplus(dt + dt_bias) and the decay's log softplus(.) * A, float32
+    (the decay is its exp)."""
     a = -torch.exp(params["a_log"].float())
     dt_act = F.softplus(dt.float() + params["dt_bias"].float())
-    return dt_act, torch.exp(dt_act * a)
+    return dt_act, dt_act * a
 
 
 def mamba_seq(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -92,10 +95,10 @@ def mamba_seq(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     xi, z, b, c, dt = _split_proj(x @ params["w_in"].to(dt_), d_inner, ds)
     conv_out = _causal_conv(torch.cat([xi, b, c], dim=-1), params["conv"].to(dt_))
     xi, b, c = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
-    dt_act, decay = _dt_decay(params, dt)  # (B, S, heads)
+    dt_act, log_decay = _dt_decay(params, dt)  # (B, S, heads)
     xh = xi.reshape(bsz, s, heads, HEAD_DIM).float()
     dtx = dt_act[..., None] * xh
-    y = ssd_scan(decay, dtx, b.float(), c.float())  # (B, S, heads, 64)
+    y = ssd_scan_logdec(log_decay, dtx, b.float(), c.float())  # (B, S, heads, 64)
     y = y + params["d_skip"].float()[None, None, :, None] * xh
     y = y.reshape(bsz, s, d_inner).to(dt_) * F.silu(z)
     return y @ params["w_out"].to(dt_)
@@ -113,7 +116,8 @@ def mamba_decode_step(params: dict, cfg, x: torch.Tensor, state: dict):
     buf = torch.cat([state["conv_buf"].to(dt_), conv_in[:, None]], dim=1)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", buf, params["conv"].to(dt_)))
     xi, b, c = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
-    dt_act, decay = _dt_decay(params, dt)  # (B, heads)
+    dt_act, log_decay = _dt_decay(params, dt)  # (B, heads)
+    decay = torch.exp(log_decay)
     xh = xi.reshape(bsz, heads, HEAD_DIM).float()
     h = state["h"].float()
     h = h * decay[..., None, None] + (dt_act[..., None] * xh)[..., None] * b.float()[:, None, None, :]

@@ -27,12 +27,12 @@ is the JAX pytree with every stack (``layers``, ``encoder.layers``,
 ``cfg.dtype`` at use, as in JAX.  Each core layer body ends in
 ``grad_fence_bf16`` and, when gradients are taken, runs under
 ``cfg.remat_policy`` (``torch.utils.checkpoint``, as JAX wraps it in
-``jax.checkpoint``).
-
-Not in this slice: training of the RWKV, hybrid, encoder-decoder and
-frontend families (ROADMAP.md Queue 1 item 13; the recurrence kernels have
-no backward yet).  ``check_trainable(cfg)`` raises ``NotImplementedError``
-for them.
+``jax.checkpoint``), in every family: the RWKV and hybrid layers, the
+encoder's and the decoder's with cross-attention.  Every family trains:
+the recurrences' gradients come from their backward kernels on the card,
+and the hybrid's shared block, used after every ``shared_attn_every``-th
+layer, gathers its gradient from each use, as JAX sums it over the
+``lax.cond`` branches of its scan.
 """
 
 from __future__ import annotations
@@ -76,7 +76,6 @@ __all__ = [
     "DenseLayer",
     "ParamTree",
     "Transformer",
-    "check_trainable",
     "cross_entropy_loss",
     "decode_step",
     "fill_cross_cache",
@@ -85,30 +84,6 @@ __all__ = [
     "init_decode_state",
     "init_model",
 ]
-
-
-def _family(cfg: ModelConfig) -> str | None:
-    """The family's name when it is one that trains not yet, else None."""
-    if cfg.rwkv:
-        return "RWKV"
-    if cfg.family == "hybrid":
-        return "hybrid (Mamba2)"
-    if cfg.is_encoder_decoder:
-        return "encoder-decoder"
-    if cfg.frontend is not None:
-        return f"{cfg.frontend} frontend"
-    return None
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for the families that do not train yet, naming their ROADMAP.md
-    item: the RWKV, hybrid, encoder-decoder and frontend families (item 13).
-    Every family runs forward, prefill and decode."""
-    family = _family(cfg)
-    if family is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training of the {family} family is not ported yet: ROADMAP.md "
-            "Queue 1 item 13 (the recurrence kernels have no backward)")
 
 
 class DenseLayer(nn.Module):

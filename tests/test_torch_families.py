@@ -240,8 +240,8 @@ def test_reset_slot_zeroes_a_reused_rwkv_slot():
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "whisper-base"])
 def test_remat_policies_cover_the_new_layer_bodies(arch, policy):
     """Under each ``remat_policy`` the new layer bodies give the same logits
-    and input gradients on the CPU (the plain recurrences are
-    differentiable there; the CUDA kernels refuse gradients)."""
+    and input gradients on the CPU (the plain recurrences under autograd;
+    on the card the scan kernels' backward kernels)."""
     _, tcfg, params, _ = _pair(arch)
     batch = _batch(tcfg, 1, 6, seed=5)
     tree = ttr.Transformer(tcfg, lm_params_from_numpy(tcfg, params, device="cpu").params())
@@ -258,12 +258,23 @@ def test_remat_policies_cover_the_new_layer_bodies(arch, policy):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_training_refused_naming_its_item(arch):
+    """Refused until ROADMAP item 13; now every family trains: ``make_loss_fn``
+    and ``make_train_step`` take it, and one SGD step on the CPU (the plain
+    recurrences under autograd) gives a finite loss and moves every weight
+    the loss reaches (tests/test_torch_train_families.py holds the steps to
+    JAX's)."""
     cfg = treg.reduced_config(arch)
-    for make in (tzoo.make_loss_fn, lambda c: tzoo.make_train_step(c, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make(cfg)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttr.check_trainable(cfg)
+    batch = _batch(cfg, 2, 6, seed=7)
+    batch["labels"] = np.roll(batch["tokens"], -1, axis=1)
+    model = tzoo.init_model(cfg, seed=0, device="cpu")
+    loss = tzoo.make_loss_fn(cfg)(model, batch)
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    before = [p.detach().clone() for p in model.parameters()]
+    state, metrics = tzoo.make_train_step(cfg, device="cpu")({"params": model, "lr": 1e-2}, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    moved = [not torch.equal(a, b) for a, b in zip(before, state["params"].parameters())]
+    assert sum(moved) >= len(moved) - 2, moved  # all but weights no gradient reaches
+    assert not hasattr(ttr, "check_trainable")
 
 
 def test_launcher_serves_the_recurrent_families_and_refuses_whisper(capsys):

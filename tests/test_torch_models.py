@@ -252,7 +252,8 @@ def test_init_model_shapes_and_determinism():
 def test_unported_families_raise(arch):
     """Every family builds and prefills at reduced_config (the MoE family
     since ROADMAP item 2, the other four since item 10's first part); the
-    four train not yet and raise naming ROADMAP item 13."""
+    four raised naming ROADMAP item 13 until it ported their training, and
+    now give a finite, differentiable loss."""
     cfg = treg.reduced_config(arch)
     model = tzoo.init_model(cfg, seed=0, device="cpu")
     batch = {"tokens": np.zeros((1, 5))}
@@ -264,5 +265,8 @@ def test_unported_families_raise(arch):
     assert last.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(last).all())
     if cfg.is_moe:
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        tzoo.make_loss_fn(cfg)
+    batch["labels"] = np.ones((1, 5), np.int64)
+    loss = tzoo.make_loss_fn(cfg)(model, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    assert bool(torch.isfinite(loss)) and all(g is None or bool(torch.isfinite(g).all())
+                                              for g in grads)

@@ -19,6 +19,8 @@ The CUDA kernels' chunked algorithm, in plain float32 (``ref``'s
 against JAX's scans and the step loops at S in {1, 15, 16, 17, 63, 64, 65,
 128, 130, 1000}, with the models' decays, strong ones (some exactly 0),
 none (w = dec = 1) and one near-zero decay among mild ones.
+
+The backward is held against ``jax.vjp`` in ``tests/test_torch_recurrence_bwd.py``.
 """
 
 import dataclasses
@@ -46,6 +48,18 @@ from repro_torch.models import ssm as tssm
 
 TOL = 1e-5
 SEQS = [1, 7, 128, 130, 256]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: its step loops are thousands of
+    small operations, which run several times slower when each process of
+    a parallel test run spreads them over every core (measured: six
+    processes side by side, 60 s each against 17 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 CHUNKS = [1, 64, 128]
 CHUNKED_SEQS = [1, 15, 16, 17, 63, 64, 65, 128, 130, 1000]  # around 16- and 32-step edges
 DECAYS = ["model", "strong", "none", "spike"]
@@ -70,8 +84,9 @@ def _torch_tree(tree):
     return jax.tree_util.tree_map(torch.from_numpy, tree)
 
 
-def _jax_wkv(r, k, v, w, u, chunk):
-    """JAX's WKV scan: rwkv_time_mix_seq's step through its _chunked_scan."""
+def _jax_wkv_ys(r, k, v, w, u, chunk):
+    """JAX's WKV scan: rwkv_time_mix_seq's step through its _chunked_scan,
+    as a jnp function of its inputs; y (B, S, H, 64)."""
     def step(s_state, ins):
         r_t, k_t, v_t, w_t = ins
         kv = k_t[..., :, None] * v_t[..., None, :]
@@ -82,11 +97,16 @@ def _jax_wkv(r, k, v, w, u, chunk):
     xs = tuple(jnp.asarray(a).transpose(1, 0, 2, 3) for a in (r, k, v, w))
     s0 = jnp.zeros((b, h, hd, hd), jnp.float32)
     _, ys = jrwkv._chunked_scan(step, s0, xs, s, chunk)
-    return np.asarray(ys.transpose(1, 0, 2, 3))
+    return ys.transpose(1, 0, 2, 3)
 
 
-def _jax_ssd(decay, dtx, bm, cm, chunk):
-    """JAX's Mamba2 scan: mamba_seq's step through _chunked_scan."""
+def _jax_wkv(r, k, v, w, u, chunk):
+    return np.asarray(_jax_wkv_ys(r, k, v, w, jnp.asarray(u), chunk))
+
+
+def _jax_ssd_ys(decay, dtx, bm, cm, chunk):
+    """JAX's Mamba2 scan: mamba_seq's step through _chunked_scan, as a jnp
+    function of its inputs; y (B, S, H, 64)."""
     def step(h, ins):
         dec_t, dtx_t, b_t, c_t = ins
         h = h * dec_t[..., None, None] + dtx_t[..., None] * b_t[:, None, None, :]
@@ -97,7 +117,11 @@ def _jax_ssd(decay, dtx, bm, cm, chunk):
           jnp.asarray(bm).transpose(1, 0, 2), jnp.asarray(cm).transpose(1, 0, 2))
     h0 = jnp.zeros((b, h, hd, bm.shape[-1]), jnp.float32)
     _, ys = jrwkv._chunked_scan(step, h0, xs, s, chunk)
-    return np.asarray(ys.transpose(1, 0, 2, 3))
+    return ys.transpose(1, 0, 2, 3)
+
+
+def _jax_ssd(decay, dtx, bm, cm, chunk):
+    return np.asarray(_jax_ssd_ys(decay, dtx, bm, cm, chunk))
 
 
 def _spiked(mild: np.ndarray) -> np.ndarray:
@@ -139,19 +163,21 @@ def _ssd_inputs(b, s, h, n, seed, decay="model"):
 @pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("s", SEQS)
 def test_wkv6_scan_plain_matches_jax_scan(s, chunk):
-    arrays = _wkv_inputs(2, s, 3, seed=s)
-    got = rops.wkv6_scan(*(torch.from_numpy(a) for a in arrays))
+    r, k, v, w, u = (torch.from_numpy(a) for a in _wkv_inputs(2, s, 3, seed=s))
+    log_w = torch.log(w)
+    got = rops.wkv6_scan_logw(r, k, v, log_w, u)
     assert got.shape == (2, s, 3, 64) and got.dtype == torch.float32
-    _close(got, _jax_wkv(*arrays, chunk))
+    _close(got, _jax_wkv(*(t.numpy() for t in (r, k, v, torch.exp(log_w), u)), chunk))
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("s", SEQS)
 def test_ssd_scan_plain_matches_jax_scan(s, chunk):
-    arrays = _ssd_inputs(2, s, 3, 64, seed=s)
-    got = rops.ssd_scan(*(torch.from_numpy(a) for a in arrays))
+    decay, dtx, bm, cm = (torch.from_numpy(a) for a in _ssd_inputs(2, s, 3, 64, seed=s))
+    log_decay = torch.log(decay)
+    got = rops.ssd_scan_logdec(log_decay, dtx, bm, cm)
     assert got.shape == (2, s, 3, 64) and got.dtype == torch.float32
-    _close(got, _jax_ssd(*arrays, chunk))
+    _close(got, _jax_ssd(*(t.numpy() for t in (torch.exp(log_decay), dtx, bm, cm)), chunk))
 
 
 @pytest.mark.parametrize("decay", DECAYS)
@@ -199,36 +225,40 @@ def test_scans_take_strided_views_of_one_projection():
     w = torch.sigmoid(w)
     u = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
     assert not r.is_contiguous()
-    torch.testing.assert_close(rops.wkv6_scan(r, k, v, w, u), wkv6_scan_ref(
-        *(t.contiguous() for t in (r, k, v, w)), u), rtol=0, atol=0)
+    log_w = torch.log(w)
+    torch.testing.assert_close(rops.wkv6_scan_logw(r, k, v, log_w, u), wkv6_scan_ref(
+        *(t.contiguous() for t in (r, k, v, torch.exp(log_w))), u), rtol=0, atol=0)
     conv = torch.from_numpy(rng.standard_normal((2, 9, 3 * 64 + 2 * 64)).astype(np.float32))
     dtx = conv[..., :192].reshape(2, 9, 3, 64)
     bm, cm = conv[..., 192:256], conv[..., 256:]
     decay = torch.rand((2, 9, 3), generator=torch.Generator().manual_seed(0))
-    torch.testing.assert_close(rops.ssd_scan(decay, dtx, bm, cm), ssd_scan_ref(
-        decay, dtx.contiguous(), bm.contiguous(), cm.contiguous()), rtol=0, atol=0)
+    torch.testing.assert_close(rops.ssd_scan_logdec(torch.log(decay), dtx, bm, cm), ssd_scan_ref(
+        torch.exp(torch.log(decay)), dtx.contiguous(), bm.contiguous(), cm.contiguous()),
+        rtol=0, atol=0)
 
 
 def test_scan_layout_checks_raise():
     r, k, v, w, u = (torch.from_numpy(a) for a in _wkv_inputs(1, 4, 2, seed=1))
+    log_w = torch.log(w)
     with pytest.raises(ValueError, match="differs"):
-        rops.wkv6_scan(r, k[:, :3], v, w, u)
+        rops.wkv6_scan_logw(r, k[:, :3], v, log_w, u)
     with pytest.raises(ValueError, match="u must be"):
-        rops.wkv6_scan(r, k, v, w, u[:1])
+        rops.wkv6_scan_logw(r, k, v, log_w, u[:1])
     with pytest.raises(TypeError, match="float32"):
-        rops.wkv6_scan(r.double(), k, v, w, u)
+        rops.wkv6_scan_logw(r.double(), k, v, log_w, u)
     with pytest.raises(ValueError, match="CUDA"):
         rkernel.wkv6_scan_cuda(r, k, v, w, u)
     decay, dtx, bm, cm = (torch.from_numpy(a) for a in _ssd_inputs(1, 4, 2, 64, seed=1))
+    log_decay = torch.log(decay)
     with pytest.raises(ValueError, match="decay must be"):
-        rops.ssd_scan(decay[:, :, :1], dtx, bm, cm)
+        rops.ssd_scan_logdec(log_decay[:, :, :1], dtx, bm, cm)
     with pytest.raises(ValueError, match="differ"):
-        rops.ssd_scan(decay, dtx, bm, cm[..., :32])
+        rops.ssd_scan_logdec(log_decay, dtx, bm, cm[..., :32])
     with pytest.raises(ValueError, match="CUDA"):
         rkernel.ssd_scan_cuda(decay, dtx, bm, cm)
     before = (rkernel.wkv6_scan_cuda.launches, rkernel.ssd_scan_cuda.launches)
-    rops.wkv6_scan(r, k, v, w, u)
-    rops.ssd_scan(decay, dtx, bm, cm)
+    rops.wkv6_scan_logw(r, k, v, log_w, u)
+    rops.ssd_scan_logdec(log_decay, dtx, bm, cm)
     assert (rkernel.wkv6_scan_cuda.launches, rkernel.ssd_scan_cuda.launches) == before
 
 
