@@ -359,6 +359,7 @@ from repro_torch.serve import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
+F64_TC_FLOPS_PER_S = 67e12  # H100 SXM float64 on the tensor cores (NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
@@ -3795,6 +3796,7 @@ TRAIN_FAMILY_STEPS = 4  # the first one warms up
 WHISPER_TRAIN_BATCH = 4
 VLM_TRAIN_LAYERS = 4  # of 48: AdamW's masters and moments of all 48 need ~240 GB
 BWD_SHAPES = {"wkv6": ("rwkv6-3b", (2, 4096, 40)), "ssd": ("zamba2-1.2b", (2, 4096, 64))}
+PTXAS: dict[str, str] = {}  # mangled kernel name -> ptxas -v's resources, from phase 1's build
 BWD_REPS = 5
 # tests/test_torch_train_families.py: float32 AdamW steps at lr 1e-3 within
 # 1e-4 relative.  The recurrent families' reduced configs amplify float32
@@ -3918,30 +3920,32 @@ def bwd_min_flops(kind: str, b: int, s: int, h: int) -> tuple[int, int]:
     return 3 * products * per, elementwise * per
 
 
-def bwd_kernel_flops(kind: str, b: int, s: int, h: int) -> tuple[int, int]:
+def bwd_kernel_flops(kind: str, b: int, s: int, h: int) -> dict[str, int]:
     """What the backward kernels' own algorithm (csrc/recurrence_bwd.cu)
-    spends on these shapes beyond ``bwd_min_flops``'s count, ``(float32,
-    float64)``, per (b, h) and 32-step chunk of L steps, all on the CUDA
-    cores: the forward pass to the chunk-start states (3 L 64^2); the
-    chunk's products with the 64 x 64 states (WKV-6: dr's and dk's start and
-    end parts, dv's G term, G's update; SSD: dc0, dbe, G b and G's update;
-    2 L 64^2 each); the pairs' running products along the decays (WKV-6: 8
-    a pair and channel for A, dki and dr', 3 a triple s < t < tau and channel
-    for dlogw's pairs, O(L^3); SSD: dc, db and dx's three triangles, 2 a
-    pair and column); and in float64 the pair dot products (WKV-6: D and A;
-    SSD: E and C B^T).  Printed beside the bound, not part of it."""
-    n = SCAN_CHUNK
-    pairs, incl = n * (n - 1) // 2, n * (n + 1) // 2
-    triples = sum(t * (n - 1 - t) for t in range(n))
+    computes on these shapes, by where it runs, per (b, h) and 32-step chunk
+    of L steps, both CTAs of a (b, h) summed.  "tf32": the 3xTF32 products,
+    each counted three times, per CTA (a half of the key dimension): WKV-6's
+    recompute, S0 dy^T, G v^T and G's update, L 64^2 each, D (formed whole
+    in both CTAs) 2 L^2 64, dv's [A^T | k Q] [dy; G] 2 L^2 64 + L 64^2; the
+    SSD's dy h0, x G, b G^T, the recompute and G's update, L 64^2 each, and
+    Ls E b, (Ls E)^T c and half of (Ls C B^T)^T dy, L^2 64 each.  "f64_tc":
+    the SSD's E and C B^T in float64 on the tensor cores, 2 L^2 64 each in
+    both CTAs.  "f32", on the CUDA cores: WKV-6's pair work, every lane of a
+    warp at every row tau > 0 for each of the 64 channels, 16 flops (W's
+    running product, dki's and the pairs' terms, the prefix sum's adds); the
+    SSD's pairs (one CTA: 16 a lane and row) and pair matrices (4 an entry,
+    both CTAs).  "f64", float64 on the CUDA cores: WKV-6's D diagonal in
+    both CTAs and the bonus, 2 a term.  Printed beside the bound, not part
+    of it."""
+    n, d = SCAN_CHUNK, 64
     if kind == "wkv6":
-        f32 = 3 * n * 4096 + 4 * 2 * n * 4096 + 8 * pairs * 64 + 2 * incl * 64 + 3 * (
-            triples + pairs) * 64
-        f64 = 2 * n * n * 64 + 2 * incl * 64
+        out = dict(tf32=3 * 2 * (5 * n * d * d + 4 * n * n * d), f64_tc=0,
+                   f32=(n - 1) * 32 * d * 16, f64=2 * (2 * n * d) + 2 * n * d)
     else:
-        f32 = 3 * n * 4096 + 4 * 2 * n * 4096 + 3 * 2 * incl * 64
-        f64 = 2 * 2 * n * n * 64
+        out = dict(tf32=3 * 2 * (5 * n * d * d + 3 * n * n * d), f64_tc=2 * 2 * (2 * n * n * d),
+                   f32=(n - 1) * 32 * 16 + 2 * 4 * n * n, f64=0)
     per = b * h * -(-s // SCAN_CHUNK)
-    return f32 * per, f64 * per
+    return {k: v * per for k, v in out.items()}
 
 
 def bwd_full_shape(kind: str, card: str) -> dict:
@@ -3982,21 +3986,33 @@ def bwd_full_shape(kind: str, card: str) -> dict:
     ops_ms = (products / TF32_FLOPS_PER_S + elementwise / F32_FLOPS_PER_S) * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    f32, f64 = bwd_kernel_flops(kind, b, s, h)
-    own_ms = (f32 / F32_FLOPS_PER_S + f64 / F64_FLOPS_PER_S) * 1e3
+    own = bwd_kernel_flops(kind, b, s, h)
+    own_ms = (own["tf32"] / TF32_FLOPS_PER_S + own["f64_tc"] / F64_TC_FLOPS_PER_S
+              + own["f32"] / F32_FLOPS_PER_S + own["f64"] / F64_FLOPS_PER_S) * 1e3
+    grid = rkmod.bwd_grid(kind, b, h)
+    resources = {k: v for k, v in PTXAS.items() if f"{kind}_scan_bwd_kernel" in k}
+    print(f"  {kind} backward kernel's grid at B={b} H={h}: {grid['ctas']} CTAs of "
+          f"{grid['threads']} threads, {grid['smem_bytes']} bytes of shared memory each, "
+          f"{grid['per_sm']} resident an SM on {grid['sms']} SMs: "
+          f"{'one wave' if grid['one_wave'] else 'MORE THAN ONE WAVE'}; ptxas: "
+          f"{'; '.join(resources.values()) or 'not built in this process'}")
+    check(grid["one_wave"] and grid["per_sm"] >= 2,
+          f"the {kind} backward kernel's grid is not resident in one wave: {grid}")
     print(f"  {kind} backward kernel at {arch}'s training shape B={b} S={s} H={h}: "
           f"{[round(t, 3) for t in times]} ms (medians of {BWD_REPS}); its forward kernel "
           f"{fwd_ms:.3f} ms; plain (the chunked algorithm, float32) {plain_ms:.1f} ms; bound "
           f"{bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB at 3.35 TB/s, {bytes_ms:.3f} "
           f"ms; the function's {products:.3e} TF32 product flops at 495 TFLOP/s and "
           f"{elementwise:.3e} float32 elementwise at 67, {ops_ms:.3f} ms), share of bound "
-          f"{bound_ms / ms:.3f}; the kernel's own algorithm on the CUDA cores {f32:.3e} float32 "
-          f"flops at 67 TFLOP/s and {f64:.3e} float64 at 34, {own_ms:.3f} ms; error "
+          f"{bound_ms / ms:.3f}; the kernel's own algorithm {own['tf32']:.3e} TF32 tensor-core flops "
+          f"at 495 TFLOP/s, {own['f64_tc']:.3e} float64 tensor-core at 67, {own['f32']:.3e} "
+          f"float32 at 67 and {own['f64']:.3e} float64 at 34, {own_ms:.3f} ms; error "
           f"{max(errs):.3e} of each (b, h)'s largest |plain| (tol {SCAN_TOL:g}), max |kernel - "
           f"plain| {max_abs:.3e}  [{card}]")
     check(max(errs) <= SCAN_TOL, f"the {kind} backward kernel disagrees with plain at full shape")
     return dict(ms=ms, times_ms=times, fwd_ms=fwd_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=max_abs, rel_err=max(errs), shape=[b, s, h, 64])
+                bound_by=bound_by, max_abs_err=max_abs, rel_err=max(errs), shape=[b, s, h, 64],
+                grid=grid, ptxas=resources, own_ms=own_ms)
 
 
 def family_train_batch(cfg, b: int, dev, seed: int, *, seq: int = 32, frames: int = 40,
@@ -4376,6 +4392,7 @@ def main() -> int:
     for lib in built.values():
         print(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.relative_to(REPO)}")
         for kernel, resources in build.ptxas_resources(lib.log).items():
+            PTXAS[kernel] = resources
             print(f"    {kernel[:110]}: {resources}")  # the mangled name, ptxas -v
 
     # Phase 3's tensor is drawn on the host while the LM phases (6-8, 13 and

@@ -5,9 +5,9 @@ a shared library with a plain C interface under
 ``<repo>/build/repro_torch_kernels/`` (listed in ``.gitignore``).  A source
 may also be built a second time with extra defines under another name
 (``VARIANT_LIBRARIES``: the split MTTKRP kernel's audit build).  The
-library's file name carries a hash of its source and of every flag it is
-built with, so an edited source or flag is rebuilt and an unchanged one is
-reused.  Nothing is built at import: the first call that needs a kernel
+library's file name carries a hash of its source, of every ``*.cuh`` header
+in the same ``csrc/`` directory and of every flag it is built with, so an
+edited source, header or flag is rebuilt and an unchanged one is reused.  Nothing is built at import: the first call that needs a kernel
 builds it, or ``build_all()`` builds every library at once with one
 ``nvcc`` process per library, all started together.
 
@@ -31,8 +31,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "VARIANT_LIBRARIES", "BuiltLibrary", "build_all", "libraries", "load",
-           "ptxas_resources", "sources"]
+__all__ = ["BUILD_DIR", "VARIANT_LIBRARIES", "BuiltLibrary", "build_all", "headers", "libraries",
+           "load", "ptxas_resources", "sources"]
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -87,8 +87,17 @@ def libraries() -> dict[str, tuple[Path, tuple[str, ...]]]:
             **{name: (srcs[stem], flags) for name, (stem, flags) in VARIANT_LIBRARIES.items()}}
 
 
+def headers(src: Path) -> list[Path]:
+    """The headers beside ``src`` in its ``csrc/`` directory, which it may include."""
+    return sorted(src.parent.glob("*.cuh"))
+
+
 def _library_path(name: str, src: Path, flags: tuple[str, ...]) -> Path:
+    """The library's path: its name and a digest of its source, every header
+    beside it (an edited header rebuilds every source next to it) and its flags."""
     digest = hashlib.sha256(src.read_bytes())
+    for header in headers(src):
+        digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
     digest.update("\0".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -12,9 +12,15 @@ port's counterpart of that loop and of its derivative (the sources' notes
 say how they work and what bounds them).
 
 The forward kernels are chunked scans whose chunk products run on the
-tensor cores in 3xTF32; the backward kernels run 32-step chunks in reverse
-on the CUDA cores, in float32, from chunk-start states that their own first
-pass writes into a scratch buffer.  All compute from a zero state.
+tensor cores in 3xTF32; the backward kernels run 32-step chunks in reverse,
+their state and pair products on the tensor cores in 3xTF32, from
+chunk-start states that their own first pass writes into a scratch buffer,
+each (b, h) on two CTAs that take half of the state's key dimension each.
+The halves' shares of the one output that sums over that dimension (WKV-6's
+dv; the SSD's ddtx and dlogdec) are summed here, in a fixed order.  All
+compute from a zero state.  ``bwd_grid`` gives the backward kernels' launch
+geometry on the card (CTAs, CTAs resident on an SM, threads and shared
+memory a CTA).
 
 They take CUDA tensors only, float32, with a contiguous last dimension
 (any other strides; the forward kernels stage views whose bases or strides
@@ -35,7 +41,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["HEAD_DIM", "SSD_STATE", "check_ssd_inputs", "check_wkv_inputs", "reset_launch_counts",
+__all__ = ["HEAD_DIM", "SSD_STATE", "bwd_grid", "check_ssd_inputs", "check_wkv_inputs",
+           "reset_launch_counts",
            "ssd_scan_bwd_cuda", "ssd_scan_cuda", "wkv6_scan_bwd_cuda", "wkv6_scan_cuda"]
 
 HEAD_DIM = 64  # rwkv's WKV head dim; mamba's head dim
@@ -89,12 +96,14 @@ def _check_cuda(kernel: str, tensors: dict) -> torch.device:
 
 
 def _check_dy(dy: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """dy must be float32 of y's shape (B, S, H, 64); returned contiguous."""
+    """dy must be float32 of y's shape (B, S, H, 64); returned contiguous and
+    on 16 bytes (the kernels bring its rows by bulk copies)."""
     if tuple(dy.shape) != tuple(like.shape[:3]) + (HEAD_DIM,):
         raise ValueError(f"dy must be {tuple(like.shape[:3]) + (HEAD_DIM,)}; got {tuple(dy.shape)}")
     if dy.dtype != torch.float32:
         raise TypeError(f"dy is {dy.dtype}; the scan takes float32")
-    return dy.contiguous()
+    dy = dy.contiguous()
+    return dy if dy.data_ptr() % 16 == 0 else dy.clone()
 
 
 def _bwd_library():
@@ -105,6 +114,8 @@ def _bwd_library():
         lib.wkv6_scan_bwd_launch.restype = i
         lib.ssd_scan_bwd_launch.argtypes = [p] * 11 + [i, i, i, i, p]
         lib.ssd_scan_bwd_launch.restype = i
+        lib.recurrence_bwd_occupancy.argtypes = [i, p]
+        lib.recurrence_bwd_occupancy.restype = i
         lib.recurrence_bwd_error_string.argtypes = [i]
         lib.recurrence_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -202,18 +213,21 @@ def wkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: tor
     ``(dr, dk, dv, dlogw, du)``, the first four (B, S, H, 64) contiguous,
     dlogw the gradient of log w, du (H, 64).  Inputs as ``wkv6_scan_cuda``
     takes them, dy float32 (copied if not contiguous).  Holds a scratch of
-    B * H * ceil(S / 32) * 16 KB for the launch.  Runs on the current
-    stream, not synchronised."""
+    B * H * ceil(S / 32) * 16 KB and the two halves' shares of dv for the
+    launch; dv is their sum, du the sum of each (b, h)'s share over the
+    batch.  Runs on the current stream, not synchronised."""
     dev = _check_cuda("wkv6_scan_bwd_cuda", dict(r=r, k=k, v=v, w=w, u=u, dy=dy))
     check_wkv_inputs(r, k, v, w, u)
     dy = _check_dy(dy, r)
     b, s, h, _ = r.shape
     if b > MAX_BATCH:
         raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
-    outs = [torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev) for _ in range(4)]
+    dr, dk, dlw = (torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
+                   for _ in range(3))
+    dv_part = torch.empty((2, b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
     du_part = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=dev)
-    if outs[0].numel() == 0:
-        return (*outs, torch.zeros((h, HEAD_DIM), dtype=torch.float32, device=dev))
+    if dr.numel() == 0:
+        return (dr, dk, dv_part[0], dlw, torch.zeros((h, HEAD_DIM), dtype=torch.float32, device=dev))
     u = u.contiguous()
     lib = _bwd_library()
     strides = _strides(((r, k, v, w), 3))
@@ -221,12 +235,12 @@ def wkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: tor
     with torch.cuda.device(dev):
         err = lib.wkv6_scan_bwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), dy.data_ptr(),
-            *(o.data_ptr() for o in outs), du_part.data_ptr(), scratch.data_ptr(),
-            ctypes.cast(strides, ctypes.c_void_p), b, s, h,
+            dr.data_ptr(), dk.data_ptr(), dv_part.data_ptr(), dlw.data_ptr(), du_part.data_ptr(),
+            scratch.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, s, h,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib.recurrence_bwd_error_string, err, "wkv6_scan_bwd")
     wkv6_scan_bwd_cuda.launches += 1
-    return (*outs, du_part.sum(0))
+    return dr, dk, dv_part[0] + dv_part[1], dlw, du_part.sum(0)
 
 
 def ssd_scan_bwd_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
@@ -236,7 +250,8 @@ def ssd_scan_bwd_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
     (B, S, H, 64) contiguous; dlogdec is the gradient of log decay, dbm_h
     and dcm_h each head's share of the gradient of the shared bm and cm
     (their sum over H is it).  Inputs as ``ssd_scan_cuda`` takes them, dy
-    float32.  Runs on the current stream, not synchronised."""
+    float32.  dlogdec and ddtx are the sums of the two halves' shares.  Runs
+    on the current stream, not synchronised."""
     dev = _check_cuda("ssd_scan_bwd_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm, dy=dy))
     check_ssd_inputs(decay, dtx, bm, cm)
     dy = _check_dy(dy, dtx)
@@ -245,22 +260,42 @@ def ssd_scan_bwd_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"state size {bm.shape[-1]}; the SSD kernel is built for {SSD_STATE}")
     if b > MAX_BATCH:
         raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
-    dlog = torch.empty((b, s, h), dtype=torch.float32, device=dev)
-    outs = [torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev) for _ in range(3)]
-    if dlog.numel() == 0:
-        return (dlog, *outs)
+    dlog_part = torch.empty((2, b, s, h), dtype=torch.float32, device=dev)
+    dx_part = torch.empty((2, b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
+    db_h, dc_h = (torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    if dlog_part[0].numel() == 0:
+        return dlog_part[0], dx_part[0], db_h, dc_h
     lib = _bwd_library()
     strides = _strides(((decay, dtx), 3), ((bm, cm), 2))
     scratch = _scratch(b, s, h, dev)
     with torch.cuda.device(dev):
         err = lib.ssd_scan_bwd_launch(
             decay.data_ptr(), dtx.data_ptr(), bm.data_ptr(), cm.data_ptr(), dy.data_ptr(),
-            dlog.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
-            ctypes.cast(strides, ctypes.c_void_p), b, s, h, SSD_STATE,
+            dlog_part.data_ptr(), dx_part.data_ptr(), db_h.data_ptr(), dc_h.data_ptr(),
+            scratch.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, s, h, SSD_STATE,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib.recurrence_bwd_error_string, err, "ssd_scan_bwd")
     ssd_scan_bwd_cuda.launches += 1
-    return (dlog, *outs)
+    return dlog_part[0] + dlog_part[1], dx_part[0] + dx_part[1], db_h, dc_h
+
+
+def bwd_grid(kind: str, b: int, h: int) -> dict:
+    """The backward kernel's launch at batch ``b`` and ``h`` heads on the
+    current card: its CTAs (two per (b, h)), the CTAs the card holds at once
+    (CTAs resident on an SM, from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    times the SMs), threads and shared memory a CTA.  ``kind`` "wkv6" or "ssd"."""
+    if kind not in ("wkv6", "ssd"):
+        raise ValueError(f"kind must be 'wkv6' or 'ssd'; got {kind!r}")
+    lib = _bwd_library()
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib.recurrence_bwd_error_string,
+              lib.recurrence_bwd_occupancy(0 if kind == "wkv6" else 1,
+                                           ctypes.cast(out, ctypes.c_void_p)), "occupancy")
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    ctas = 2 * b * h
+    return dict(ctas=ctas, per_sm=out[0], threads=out[1], smem_bytes=out[2], sms=sms,
+                one_wave=ctas <= out[0] * sms)
 
 
 def reset_launch_counts() -> None:

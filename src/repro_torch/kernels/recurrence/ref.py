@@ -268,9 +268,14 @@ def ssd_scan_bwd_ref(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
 # through the chunk's start state and dke (dbe) the part of dk (db) through
 # its end state; every sum runs inside one chunk and each is summed
 # directly, never as the difference of two larger sums (which would give a
-# gradient that is 0, or small beside its terms, as float32 noise).  Nothing here is on the main path: the
-# CPU tests hold both against autograd through the step loops and against
-# ``jax.vjp`` of the JAX package's scans.
+# gradient that is 0, or small beside its terms, as float32 noise); the
+# pairs in O(L^2) a chunk (``_pairs_below``).  The kernels split each (b, h)
+# over two CTAs by half of the state's key dimension (WKV-6's key channels,
+# the SSD's state columns); the gradient that sums over it (dv; ddtx and
+# dlogdec) is formed here, as there, as the halves' shares summed in order.
+# Nothing here is on the main path: the CPU tests hold both against
+# autograd through the step loops and against ``jax.vjp`` of the JAX
+# package's scans.
 
 
 def _chunk_rows(t: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -321,6 +326,30 @@ def _prefix_excl(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x.cumsum(-2)[..., :-1, :], [0, 0, 1, 0])
 
 
+_HALVES = (slice(0, HEAD_DIM // 2), slice(HEAD_DIM // 2, HEAD_DIM))  # the kernels' two CTAs
+
+
+def _pairs_below(y: torch.Tensor, r: torch.Tensor | None, strict: bool) -> torch.Tensor:
+    """The pairs' sum of the decays' gradient in O(L^2) a chunk, as the
+    kernels form it: y (..., tau, s, X) the pair terms (0 off the pairs),
+    R[tau][t] = sum_{s<t} y[tau, s] a running sum along s, then pairs_t =
+    sum over tau > t (``strict``; tau >= t otherwise) of R[tau][t] times
+    r_tau (``r`` (..., tau, X), or 1), a running sum along tau.  Every sum
+    adds terms, so t = 0, and a t whose decay is 0, give exactly 0."""
+    n = y.shape[-2]
+    rows = torch.zeros_like(y)  # R[tau][t]
+    for t in range(1, n):
+        rows[..., t, :] = rows[..., t - 1, :] + y[..., t - 1, :]
+    pairs = torch.zeros_like(y[..., 0, :, :])  # (..., t, X)
+    for tau in range(n):
+        hi = tau if strict else tau + 1
+        term = rows[..., tau, :hi, :]
+        if r is not None:
+            term = r[..., tau:tau + 1, :] * term
+        pairs[..., :hi, :] = pairs[..., :hi, :] + term
+    return pairs
+
+
 def wkv6_scan_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
                               chunk: int = CHUNK):
@@ -351,20 +380,24 @@ def wkv6_scan_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dmat = gy @ vc.transpose(-1, -2)  # D[t, s] = dy_t . v_s
     diag = torch.diagonal(dmat, dim1=-2, dim2=-1)[..., None]  # D[t, t]
     uu = u.to(dt)[None, :, None, None, :]
-    amat = torch.einsum("...ti,...si,...tsi->...ts", rc, kc, wp)
-    beta = (rc * uu * kc).sum(-1, keepdim=True)
-    dv = amat.transpose(-1, -2) @ gy + beta * gy + (kc * q) @ g
+    beta = (rc * uu * kc).sum(-1, keepdim=True)  # the bonus A[t, t]
+    # dv sums over every key channel: each half of the channels (one CTA
+    # each in the kernel) gives its share, A's entries over its channels and
+    # its rows of G; the bonus enters the first half's.  Summed in order.
+    dv = None
+    for half, ch in enumerate(_HALVES):
+        amat = torch.einsum("...ti,...si,...tsi->...ts", rc[..., ch], kc[..., ch], wp[..., ch])
+        share = amat.transpose(-1, -2) @ gy + (kc * q)[..., ch] @ g[..., ch, :]
+        if half == 0:
+            share = share + beta * gy
+        dv = share if dv is None else dv + share
     dr_state = p * (gy @ s0.transpose(-1, -2)) + torch.einsum("...ts,...tsi,...si->...ti", dmat, wp, kc)
     dk_in = torch.einsum("...ts,...tsi,...ti->...si", dmat, wp, rc)
     dk_end = q * (vc @ g.transpose(-1, -2))
     dr = dr_state + uu * kc * diag
     dk = dk_in + dk_end + uu * rc * diag
     du = (rc * kc * diag).sum((0, 2, 3))
-    # The pairs s < t < tau: M[tau, s] summed over s < t, then over tau > t.
-    m = torch.einsum("...ts,...tsi,...ti,...si->...tsi", dmat, wp, rc, kc)  # [tau, s]
-    below = F.pad(m.cumsum(-2)[..., :-1, :], [0, 0, 1, 0])  # [tau, t]: sum_{s < t}
-    later = torch.triu(torch.ones(chunk, chunk, dtype=torch.bool, device=r.device), 1)
-    pairs = (below.transpose(-3, -2) * later[..., None]).sum(-2)  # [t]: sum_{tau > t}
+    pairs = _pairs_below(torch.einsum("...ts,...tsi,...si->...tsi", dmat, wp, kc), rc, strict=True)
     start = rc * p * (gy @ s0.transpose(-1, -2))  # r_tau P_tau (S0 dy_tau)
     dlogw = (pairs + _suffix(start, inclusive=False) + _prefix_excl(kc * dk_end)
              + (p_l * (g * s0).sum(-1))[..., None, :])
@@ -406,13 +439,21 @@ def ssd_scan_bwd_chunked_ref(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.T
     dc = dc_start + le @ bc
     db_in = le.transpose(-1, -2) @ cc
     db_end = suf * (xc @ g)
-    dx = cb.transpose(-1, -2) @ gy + suf * (bc @ g.transpose(-1, -2))
-    # The pairs s < t <= tau inside the chunk, summed directly: M[tau, s] =
-    # Ls E (C B^T), its column suffixes from t, summed over s < t.
-    pairs = _suffix(cb * (gy @ xc.transpose(-1, -2)), inclusive=True)  # (.., t, s)
-    inner = (torch.tril(pairs, diagonal=-1)).sum(-1, keepdim=True)
-    dlog = (_suffix((cc * dc_start).sum(-1, keepdim=True), inclusive=True) + inner
-            + _prefix_excl((bc * db_end).sum(-1, keepdim=True))
-            + (p_l * (g * h0).sum((-1, -2))[..., None])[..., None, :])
+    dx_pairs = cb.transpose(-1, -2) @ gy
+    # The pairs s < t <= tau inside the chunk, M[tau, s] = Ls E (C B^T).
+    inner = _pairs_below((cb * (gy @ xc.transpose(-1, -2)))[..., None], None, strict=False)
+    # ddtx and dlogdec sum over every state column n: each half of the
+    # columns (one CTA each in the kernel) gives its share, the pairs' terms
+    # the first half's (dx's Ls (C B^T)^T dy split by d); summed in order.
+    dx = dlog = None
+    for half, ch in enumerate(_HALVES):
+        dx_h = suf * (bc[..., ch] @ g[..., :, ch].transpose(-1, -2))
+        dx_h[..., ch] = dx_h[..., ch] + dx_pairs[..., ch]
+        dlog_h = ((_suffix((cc[..., ch] * dc_start[..., ch]).sum(-1, keepdim=True), inclusive=True)
+                   + (inner if half == 0 else 0.0))
+                  + (_prefix_excl((bc[..., ch] * db_end[..., ch]).sum(-1, keepdim=True))
+                     + (p_l * (g[..., ch] * h0[..., ch]).sum((-1, -2))[..., None])[..., None, :]))
+        dx = dx_h if dx is None else dx + dx_h
+        dlog = dlog_h if dlog is None else dlog + dlog_h
     return (_unchunk(dlog, s)[..., 0], _unchunk(dx, s), _unchunk(db_in + db_end, s),
             _unchunk(dc, s))

@@ -102,7 +102,8 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         tzoo.make_prefill_fn(small, device="cpu")(model.to("meta"), {"tokens": np.zeros((1, 2))})
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")),
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+                         + sorted(PORT.rglob("*.cuh")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_calls_no_library_attention_and_no_compiler(path):
     """The port's kernels are its own: no fused library attention, no torch.compile."""
@@ -121,6 +122,30 @@ def test_cuda_sources_and_build_directory():
     assert build.BUILD_DIR.is_relative_to(REPO)
     ignored = (REPO / ".gitignore").read_text().split()
     assert "/build/" in ignored and "chiprun_out/" in ignored
+
+
+def test_an_edited_header_changes_the_library_path(tmp_path):
+    """A library's digest covers every header beside its source: an edited
+    ``*.cuh`` in the source's ``csrc/`` builds a new library (a stale one
+    would load otherwise), while a header elsewhere changes nothing."""
+    csrc = tmp_path / "scan" / "csrc"
+    csrc.mkdir(parents=True)
+    src = csrc / "scan.cu"
+    src.write_text('#include "common.cuh"\n')
+    header = csrc / "common.cuh"
+    header.write_text("// v1\n")
+    (tmp_path / "elsewhere.cuh").write_text("// unrelated\n")
+    assert build.headers(src) == [header]
+    before = build._library_path("scan", src, ())
+    assert before == build._library_path("scan", src, ())
+    (tmp_path / "elsewhere.cuh").write_text("// edited\n")
+    assert build._library_path("scan", src, ()) == before
+    header.write_text("// v2\n")
+    after = build._library_path("scan", src, ())
+    assert after != before and after.parent == before.parent
+    assert build._library_path("scan", src, ("-DX",)) != after
+    repo_src = build.sources()["recurrence_bwd"]
+    assert [p.name for p in build.headers(repo_src)] == ["recurrence_common.cuh"]
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

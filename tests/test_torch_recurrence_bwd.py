@@ -153,3 +153,54 @@ def test_scan_backward_at_4096_steps_with_the_models_decays(kind):
     want = _jax_vjp(kind, args, dy, 128)
     _bwd_close(kind, _chunked_bwd(kind, args, dy), want)
     _bwd_close(kind, _autograd_bwd(kind, args, dy), want)
+
+
+def _direct_pairs(kind: str, dec: np.ndarray, dmat: np.ndarray, r: np.ndarray, k: np.ndarray):
+    """The pairs' sum of the decays' gradient over one chunk, summed directly
+    in O(L^3): WKV-6's sum_{s<t<tau} D[tau,s] r_tau k_s prod_{s<sigma<tau} w
+    per channel; the SSD's sum_{s<t<=tau} M[tau,s], M = Ls E (C B^T) with
+    Ls = prod_{s<sigma<=tau} of the decays (r and k unused; dmat is E (C B^T))."""
+    n = dec.shape[0]
+    out = np.zeros((n,) + dec.shape[1:])
+    for t in range(n):
+        for tau in range(t if kind == "ssd" else t + 1, n):
+            for s in range(t):
+                if kind == "wkv6":
+                    out[t] += dmat[tau, s] * r[tau] * k[s] * np.prod(dec[s + 1:tau], axis=0)
+                else:
+                    out[t] += dmat[tau, s] * np.prod(dec[s + 1:tau + 1], axis=0)
+    return out
+
+
+@pytest.mark.parametrize("decay", ["model", "strong", "zero"])
+@pytest.mark.parametrize("kind", ["wkv6", "ssd"])
+def test_pairs_in_l_squared_equal_the_direct_sum(kind, decay):
+    """The backward kernels' O(L^2) pairs (``ref._pairs_below``: a running
+    sum along s, then along tau) against the O(L^3) direct sum, in float64,
+    over one 32-step chunk: within 1e-12 of the largest; exactly 0 at t = 0,
+    and at every step whose decay is exactly 0."""
+    rng = np.random.default_rng(11)
+    n, x = rops_ref.CHUNK, 64 if kind == "wkv6" else 1
+    args, _ = _bwd_inputs(kind, 1, n, 1, seed=5, decay="model" if decay == "zero" else decay)
+    log_dec = (args[3][0, :, 0] if kind == "wkv6" else args[0][0, :, :1]).astype(np.float64)
+    dec = np.exp(log_dec)
+    zeros = [5, 17] if decay == "zero" else []
+    dec[zeros] = 0.0
+    dmat = rng.standard_normal((n, n))
+    r, k = rng.standard_normal((n, x)), rng.standard_normal((n, x))
+    want = _direct_pairs(kind, dec, dmat, r, k)
+    tdec = torch.from_numpy(dec)
+    if kind == "wkv6":
+        wp = rops_ref._pair_products(tdec, inclusive=False)  # (tau, s, X)
+        y = torch.from_numpy(dmat)[..., None] * wp * torch.from_numpy(k)[None]
+        got = rops_ref._pairs_below(y, torch.from_numpy(r), strict=True).numpy()
+    else:
+        ls = rops_ref._pair_products(tdec, inclusive=True)
+        got = rops_ref._pairs_below(torch.from_numpy(dmat)[..., None] * ls, None,
+                                    strict=False).numpy()
+    assert got.shape == want.shape and got.dtype == np.float64
+    scale = np.abs(want).max()
+    assert scale > 0 and np.abs(got - want).max() <= 1e-12 * scale, np.abs(got - want).max() / scale
+    assert (got[0] == 0).all()
+    for t in zeros:
+        assert (got[t] == 0).all() and (want[t] == 0).all(), t

@@ -22,7 +22,9 @@ The backward kernels are held over the same grid (chip_smoke.py's phase 18
 and ``ssd_scan_bwd_ref``), against a cotangent dy drawn from the seed: every
 gradient within 1e-4 of its (b, h)'s largest |plain| (du: of each head's;
 the SSD's per-head dbm and dcm, summed over the heads, of each sequence's),
-two launches bit for bit equal, and the inputs they do not take refused.
+two launches bit for bit equal, and the inputs they do not take refused;
+also their grid's edges (lengths ending inside an odd number of chunks, H =
+1 and B = 1) and its residency at the training shapes.
 """
 
 import numpy as np
@@ -214,6 +216,32 @@ def test_backward_kernels_hold_strong_unit_and_spike_decays(cuda, decay, layout)
         for kind, make in (("wkv6", wkv_inputs), ("ssd", ssd_inputs)):
             args = make(b, s, h, cuda, seed=s + h, **kw)
             _bwd_check(kind, args, _dy(b, s, h, cuda, s + h))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
+@pytest.mark.parametrize("s", [81, 145])
+@pytest.mark.parametrize("kind", ["wkv6", "ssd"])
+def test_backward_kernels_on_their_grid_edges(cuda, kind, s, layout):
+    """Each (b, h) runs on two CTAs, each half of the state's key dimension,
+    the chunks staged a chunk ahead in two buffers: lengths that end inside
+    a chunk after an odd number of chunks (3 and 5), H = 1 and B = 1 beside
+    B = 2, H = 3, in every layout; against the plain version and a repeat,
+    bit for bit."""
+    make = wkv_inputs if kind == "wkv6" else ssd_inputs
+    for b, h in ((1, 1), (2, 3)):
+        args = make(b, s, h, cuda, strided=layout == "strided",
+                    misaligned=layout == "misaligned", seed=s + 7 * h + b)
+        _bwd_check(kind, args, _dy(b, s, h, cuda, s + b))
+
+
+def test_backward_grid_is_one_wave_at_the_training_shapes(cuda):
+    """Two CTAs a (b, h), at most two an SM: 160 CTAs at rwkv6-3b's B = 2,
+    H = 40 and 256 at zamba2-1.2b's H = 64, all resident at once."""
+    for kind, h in (("wkv6", 40), ("ssd", 64)):
+        grid = rkernel.bwd_grid(kind, 2, h)
+        assert grid["ctas"] == 4 * h and grid["threads"] == 256
+        assert grid["per_sm"] >= 2 and grid["smem_bytes"] <= 113 * 1024
+        assert grid["one_wave"], grid
 
 
 def test_backward_kernels_refuse_what_they_do_not_take(cuda):
