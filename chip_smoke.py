@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with the card:
 
 Phases, each of which fails the run (exit code 1, no result line).  They
 run in the order 1, 2, 6-8, 13, 16, 17, 18, 3-5, 12's Table II part, 10,
-9, 11, 12, 14, 15: phase 3's tensor is drawn in a child process on the
+9, 11, 12, 14, 15, 19: phase 3's tensor is drawn in a child process on the
 host while phases 6-8, 13, 16, 17 and 18 keep the card busy.
 
   1. the card, the versions, both TF32 flags, and the build of every CUDA
@@ -162,7 +162,7 @@ host while phases 6-8, 13, 16, 17 and 18 keep the card busy.
      FUSED_FIT_TOL of phase 3's, launches per rank, the setups' host
      seconds, per mode the local launch alone (one rank at a time, queued
      behind a sleep), the collective alone and the whole call, peak memory
-     per rank; (c) ``run_experiments(impls=("sharded",), n_shards=8)`` on
+     per rank; (c) ``run_experiments(impls=("sharded",), n_shards=4)`` on
      phase 11's first stand-in (NELL-2@0.026), each rank's launches and the
      fit against phase 11's;
  15. kernel contracts on the card: the split MTTKRP kernel's audit build
@@ -247,6 +247,23 @@ host while phases 6-8, 13, 16, 17 and 18 keep the card busy.
      output and lse; whisper-base on ``input_specs(train_4k)`` at B = 4 and
      internvl2-26b at 4 of 48 layers, B = 2, through ``make_train_step``,
      the same figures.
+ 19. the sharded LM on 4 gloo ranks sharing the card (one group, the
+     unsharded references run first in this process and are freed): (a)
+     ``sharded_train_step`` on a (2, 2) (data, model) mesh, granite-moe-
+     1b-a400m at full width, 4 of 24 layers, B = 4, S = 4096, 2
+     microbatches, 2 AdamW steps from ``shard_state``: each leaf's update
+     against the unsharded ``make_train_step``'s and a control's (4
+     microbatches of one row, a rank's row shapes; ``SHARD_UPDATE_TOL``),
+     the step time, the weights' gather and the gradients' ``all_reduce``
+     timed alone at the step's sizes, each rank's peak memory and flash
+     launches (32 a rank); (b) its weights saved from (2, 2) and restored
+     onto (4, 1), array-equal; (c) ``sharded_decode_attention``,
+     internlm2-1.8b's attention at full width in float32, B = 4, a cache of
+     32768 over 4 ranks, 12 steps across a window's edge, against the
+     unsharded ``decode_attention`` (3e-4); (d) ``compressed_psum`` of 64 M
+     float32 a rank (5% of the exact sum, equal to the plain computation)
+     and ``ring_allgather_matmul`` (m 4096, k 2048, n 4 x 2048; 2e-4 of x @
+     w), each beside ``all_reduce`` and ``all_gather`` + matmul.
 
 The last four lines are phase 15's facts (``{"phase15": ...}``), the card's
 ``name, power.limit``, a JSON object
@@ -257,8 +274,8 @@ its per-ordering times, phase 11's per-tensor times and phase 12's tunes; its
 tile mode, on the blocked plans of phase 10, with the block kernel's time
 as ``previous_ms``; and the wgmma flash kernel
 with the ``mma.sync`` kernel's, phase 13's decode numbers and phase 16's
-training numbers, its launches on the training path and phase 17's under
-``launches_by_path``; the two recurrence kernels and their two backward
+training numbers, its launches on the training path, phase 17's and
+phase 19's ranks' under ``launches_by_path``; the two recurrence kernels and their two backward
 kernels, ``library_ms`` null),
 and
 ``{"ok": true, "device": {...}}``.  The
@@ -2299,7 +2316,7 @@ def decode_phase(dev, card: str) -> dict:
 # (b) Table II on 4 ranks sharing the card; (c) the engine's sharded impl.
 SHARD_WORLDS = (1, 3, 8)
 TABLE2_SHARDS = 4
-ENGINE_SHARDS = 8
+ENGINE_SHARDS = 4  # 8 until phase 19 was added, cut to make room for it
 # (c) runs phase 11's first stand-in: with PATENTS@5.6e-4 as well, phase 14
 # took 252-270 s, past its 240 s target; LBNL@1.0 took 77-80 s of it more,
 # and the whole script 783-892 s of the 1200 s it may take.  The 5-mode
@@ -4371,6 +4388,456 @@ def bwd_entries(trained: dict) -> list[dict]:
     return out
 
 
+# -- phase 19: the sharded LM on ranks that share the card ----------------------
+
+SHARD_LM = dict(  # phase 19's sizes
+    arch=TRAIN_ARCH, layers=4,  # of 24: ~0.31e9 parameters, 1.26 GB a float32 copy
+    batch=4, seq=4096, microbatches=2, steps=2, mesh=(2, 2), lr=1e-3,
+    decode_arch=ARCH, decode_batch=4, decode_cache=32_768, decode_steps=12,
+    decode_pos=(8186, 8190, 100, 20_000),  # rows 0 and 1 cross the edge at 8192
+    psum_elems=64 * 2**20, ring=(4096, 2048, 2048))  # ring: m, k, n a rank
+SHARD_RANKS = 4
+# The update two sharded steps make to each leaf, ||delta - delta_ref|| /
+# ||delta_ref||, set from a calibration on the card (PERF.md, the sharded LM): against
+# the control (4 microbatches of one row: a rank's row shapes, so the same
+# bf16 products) within float32's step tolerance (measured 2.6e-8: the order
+# of the gradients' sum); against the unsharded step (2 rows a microbatch:
+# other bf16 products) within 1.25x the control's own gap to it (measured
+# 0.131 and 0.131: two correct runs of one step differ that much in bf16).
+SHARD_CONTROL_TOL = 1e-4
+SHARD_UNSHARDED_RATIO = 1.25
+SHARD_DECODE_TOL = 3e-4  # tests/test_distributed.py:115
+SHARD_PSUM_TOL = 5e-2  # tests/test_distributed.py:141
+SHARD_RING_TOL = 2e-4  # tests/test_distributed.py:159
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def shard_lm_config(sizes: dict):
+    cfg = get_config(sizes["arch"]) if "reduced" not in sizes else reduced_config(
+        sizes["arch"], **sizes["reduced"])
+    return dataclasses.replace(cfg, num_layers=sizes["layers"])
+
+
+def shard_decode_config(sizes: dict):
+    cfg = get_config(sizes["decode_arch"]) if "reduced" not in sizes else reduced_config(
+        sizes["decode_arch"], **sizes["reduced"])
+    return dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+
+
+def shard_lm_batches(cfg, sizes: dict) -> list[dict]:
+    """The steps' global batches: every row has its first 16 labels set to
+    -100, so each row holds as many labels and a microbatch of one row (the
+    control's) computes the same function as one of two."""
+    stream = SyntheticLMStream(cfg.vocab_size, sizes["seq"], sizes["batch"], seed=19)
+    out = []
+    for _ in range(sizes["steps"]):
+        b = next(stream)
+        labels = np.array(b["labels"], copy=True)
+        labels[:, :16] = -100
+        out.append({"tokens": np.asarray(b["tokens"]), "labels": labels})
+    return out
+
+
+def shard_decode_inputs(cfg, sizes: dict, dev):
+    """The attention weights, the full caches (random, as if prefilled), the
+    steps' inputs: the same draws on every process."""
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    params = tattn.init_attention(gen, cfg)
+    shape = (sizes["decode_batch"], sizes["decode_cache"], cfg.num_kv_heads, cfg.head_dim)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    xs = torch.randn((sizes["decode_steps"], sizes["decode_batch"], 1, cfg.d_model),
+                     generator=gen, device=dev)
+    return params, k, v, xs
+
+
+def _psum_input(sizes: dict, rank: int, dev) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(4000 + rank)
+    return torch.randn(sizes["psum_elems"], generator=gen, device=dev) * (1.0 + rank)
+
+
+def _ring_inputs(sizes: dict, rank: int, dev):
+    m, k, n = sizes["ring"]
+    x = torch.randn((m, k), generator=torch.Generator(device=dev).manual_seed(5000), device=dev)
+    w = torch.randn((k, n), generator=torch.Generator(device=dev).manual_seed(5001 + rank),
+                    device=dev)
+    return x, w
+
+
+def _wall(dev, fn):
+    """``fn()``'s host seconds, every rank starting together, ending in a sync."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def sharded_lm_rank(sizes: dict, device: str, workdir: str, decode_x) -> dict:
+    """Phase 19 on one rank of the 4 that share the card (gloo): (a) the
+    sharded train step on a (2, 2) mesh, counted, timed, its two collectives
+    timed alone, and rank 0's gathered weights returned; (b) the weights
+    saved from (2, 2) and restored onto (4, 1); (c) the sharded decode on
+    4 windows; (d) both collectives, each beside its plain collective."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import rank_device
+    from repro_torch.distributed.collectives import compressed_psum, ring_allgather_matmul
+    from repro_torch.distributed.decode import sharded_decode_attention
+    from repro_torch.distributed.sharded_step import data_group_axes, sharded_train_step
+    from repro_torch.distributed.sharding import (
+        P,
+        batch_shardings,
+        gather_state,
+        gather_tensors,
+        param_shardings,
+        shard_state,
+        train_state_shardings,
+    )
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.runtime import checkpoint as tckpt
+    from repro_torch.tree import tree_leaves
+
+    dev = rank_device(device)
+    rank = dist.get_rank()
+    cuda = dev.type == "cuda"
+    out: dict = {"rank": rank, "times": {}}
+    t_mark = [time.perf_counter()]
+
+    def mark(name: str) -> None:  # the rank's seconds in each part, for the phase's breakdown
+        now = time.perf_counter()
+        out["times"][name] = now - t_mark[0]
+        t_mark[0] = now
+
+    # -- (a) the sharded train step ---------------------------------------------
+    cfg = shard_lm_config(sizes)
+    mesh = make_mesh(sizes["mesh"], ("data", "model"), device=device)
+    state = init_adamw_state(init_model(cfg, seed=0, device=dev), lr=sizes["lr"])
+    ssh = train_state_shardings(state, cfg, mesh)
+    sstate = shard_state(state, ssh, mesh)
+    del state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    batches = shard_lm_batches(cfg, sizes)
+    bsh = batch_shardings(batches[0], cfg, mesh)
+    step = sharded_train_step(cfg, AdamW(), mesh, ssh, bsh,
+                              num_microbatches=sizes["microbatches"])
+    mark("set-up")
+    fkmod.reset_launch_counts()  # the main path of phase 19 starts here
+    step_s, losses = [], []
+    for batch in batches:
+        (sstate, metrics), seconds = _wall(dev, lambda: step(sstate, batch))
+        losses.append(float(metrics["loss"]))
+        step_s.append(seconds)
+    out["launches"] = fkmod.flash_attention_cuda.launches  # ... and ends here
+    out["by_variant"] = dict(fkmod.flash_attention_cuda.launches_by_variant)
+    out["step_s"], out["losses"] = step_s, losses
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    out["local_gb"] = sum(x.to_local().numel() * x.to_local().element_size()
+                          for key in ("params", "m", "v") for x in tree_leaves(sstate[key])) / 1e9
+    mark("steps")
+
+    # the step's two collectives alone, at its sizes (the steps warmed them):
+    # the weights' gather (the step's casts of the shards) and the
+    # gradients' sum over the data group
+    from torch.distributed.tensor import DTensor
+
+    shards = tree_leaves(sstate["params"])
+    cast = [DTensor.from_local(tzoo.compute_weight(s.to_local(), cfg), s.device_mesh,
+                               s.placements, run_check=False, shape=s.shape, stride=s.stride())
+            for s in shards]
+    flat = torch.zeros(sum(s.numel() for s in shards) + 1, device=dev)
+    group = axis_group(mesh, data_group_axes(bsh))
+    _, out["gather_s"] = _wall(dev, lambda: gather_tensors(cast))
+    _, out["reduce_s"] = _wall(dev, lambda: dist.all_reduce(flat, group=group))
+    del cast, flat
+
+    full = gather_state(sstate["params"])
+    out["params"] = tree_to_numpy(full) if rank == 0 else None
+    mark("gloo alone, gather")
+
+    # -- (b) saved from (2, 2), restored onto (4, 1) ---------------------------------
+    ck = os.path.join(workdir, "elastic")
+    saved = {"params": sstate["params"], "step": sstate["step"]}
+    _, out["save_s"] = _wall(dev, lambda: tckpt.save_checkpoint(ck, len(batches), saved))
+    del sstate, saved
+    gc.collect()
+    mesh41 = make_mesh((SHARD_RANKS, 1), ("data", "model"), device=device)
+    target = {"params": full, "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    ssh41 = {"params": param_shardings(full, cfg, mesh41), "step": P()}
+    (restored, _), out["restore_s"] = _wall(dev, lambda: tckpt.restore_checkpoint(
+        ck, target, shardings=ssh41, mesh=mesh41))
+    whole = gather_state(restored)
+    out["restored_equal"] = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(whole["params"]), tree_leaves(full))) and int(whole["step"]) == len(batches)
+    out["restored_local_gb"] = sum(x.to_local().numel() * 4
+                                   for x in tree_leaves(restored["params"])) / 1e9
+    del full, target, restored, whole
+    mark("save, restore")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (c) the sharded decode --------------------------------------------------
+    dcfg = shard_decode_config(sizes)
+    mesh4 = make_mesh((SHARD_RANKS,), ("model",), device=device)
+    aparams, k_full, v_full, _ = shard_decode_inputs(dcfg, sizes, dev)
+    s_local = sizes["decode_cache"] // SHARD_RANKS
+    window = slice(rank * s_local, (rank + 1) * s_local)
+    k_l, v_l = k_full[:, window].clone(), v_full[:, window].clone()
+    del k_full, v_full
+    pos = torch.tensor(sizes["decode_pos"], device=dev)
+    outs, tick_s = [], []
+    for x in torch.from_numpy(decode_x).to(dev):
+        (res, seconds) = _wall(dev, lambda: sharded_decode_attention(aparams, dcfg, mesh4, x, k_l,
+                                                                      v_l, pos))
+        outs.append(res[0].cpu().numpy())
+        tick_s.append(seconds)
+        pos = pos + 1
+    out["decode"], out["tick_s"] = np.stack(outs), tick_s
+    del k_l, v_l
+    mark("decode")
+
+    # -- (d) the collectives ------------------------------------------------------
+    group4 = axis_group(mesh4, "model")
+    x = _psum_input(sizes, rank, dev)
+    exact = x.clone()
+    _, out["allreduce_s"] = _wall(dev, lambda: dist.all_reduce(exact, group=group4))
+    comp, out["psum_s"] = _wall(dev, lambda: compressed_psum(x, group4))
+    xs = [_psum_input(sizes, r, dev) for r in range(SHARD_RANKS)]
+    scale = torch.stack([t.abs().max().float() / 127.0 + 1e-12 for t in xs]).max().reshape(1)
+    q_sum = sum(torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8).to(torch.int32)
+                for t in xs)
+    plain = q_sum.float() * scale
+    out["psum_equal_plain"] = bool(torch.equal(comp, plain))
+    out["psum_rel"] = float((comp - exact).abs().max() / exact.abs().max())
+    del x, exact, comp, xs, q_sum, plain
+    xr, w = _ring_inputs(sizes, rank, dev)
+    ring, out["ring_s"] = _wall(dev, lambda: ring_allgather_matmul(xr, w, group4, SHARD_RANKS))
+
+    def gather_then_matmul():
+        parts = [torch.empty_like(w) for _ in range(SHARD_RANKS)]
+        dist.all_gather(parts, w, group=group4)
+        return xr @ torch.cat(parts, dim=1)
+
+    dense, out["allgather_matmul_s"] = _wall(dev, gather_then_matmul)
+    plain = xr @ torch.cat([_ring_inputs(sizes, r, dev)[1] for r in range(SHARD_RANKS)], dim=1)
+    out["ring_rel"] = float((ring - plain).abs().max() / plain.abs().max())
+    out["ring_vs_gather_rel"] = float((ring - dense).abs().max() / dense.abs().max())
+    out["ring_flops"] = 2 * xr.shape[0] * xr.shape[1] * w.shape[1] * SHARD_RANKS
+    mark("collectives")
+    return out
+
+
+def _update_gaps(trees: dict, init: dict, pairs, dev) -> dict:
+    """For each ``(got, want)`` of ``pairs`` (keys of ``trees``), per leaf
+    ``||(got - init) - (want - init)|| / ||want - init||`` of JAX-layout
+    numpy trees, in float64 on ``dev``, each tree's update made once a leaf."""
+    out = {f"{a} vs {b}": {} for a, b in pairs}
+
+    def walk(nodes: dict, i, where):
+        if isinstance(i, dict):
+            for key in i:
+                walk({name: t[key] for name, t in nodes.items()}, i[key], f"{where}/{key}")
+            return
+        i = torch.from_numpy(np.asarray(i)).to(dev, torch.float64)
+        delta = {name: torch.from_numpy(np.asarray(t)).to(dev, torch.float64) - i
+                 for name, t in nodes.items()}
+        for a, b in pairs:
+            out[f"{a} vs {b}"][where] = float(torch.linalg.vector_norm(delta[a] - delta[b])
+                                              / torch.linalg.vector_norm(delta[b]).clamp_min(1e-30))
+
+    walk(trees, init, "")
+    return out
+
+
+def sharded_lm_phase(dev, card: str, sizes: dict = SHARD_LM) -> dict:
+    """Phase 19: the sharded LM paths on 4 gloo ranks sharing the card; the
+    references run here first, unsharded, and are freed before the spawn."""
+    from repro_torch.distributed import spawn
+
+    phase(f"phase 19: the sharded LM on {SHARD_RANKS} gloo ranks sharing the card ("
+          f"{sizes['arch']} at full width, {sizes['layers']} layers, mesh {sizes['mesh']})")
+    t_phase = time.perf_counter()
+    cfg = shard_lm_config(sizes)
+    batches = shard_lm_batches(cfg, sizes)
+    cuda = dev.type == "cuda"
+    times = {}
+
+    # the unsharded references: the same microbatches, and 4 of one row each
+    init = tree_to_numpy(init_model(cfg, seed=0, device=dev))
+    refs = {}
+    for label, mb in (("unsharded", sizes["microbatches"]),
+                      ("control", sizes["batch"])):
+        state = init_adamw_state(init_model(cfg, seed=0, device=dev), lr=sizes["lr"])
+        step = tzoo.make_train_step(cfg, AdamW(), num_microbatches=mb, device=dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for batch in batches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+        refs[label] = dict(params=tree_to_numpy(state["params"]), losses=losses, step_s=step_s,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0)
+        del state, step
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    times["references: train steps"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    dcfg = shard_decode_config(sizes)
+    aparams, k, v, xs = shard_decode_inputs(dcfg, sizes, dev)
+    pos = torch.tensor(sizes["decode_pos"], device=dev)
+    want, ref_tick = [], []
+    for x in xs:
+        _sync(dev)
+        t0 = time.perf_counter()
+        o, k, v = tattn.decode_attention(aparams, dcfg, x, k, v, pos)
+        _sync(dev)
+        ref_tick.append(time.perf_counter() - t0)
+        want.append(o.cpu().numpy())
+        pos = pos + 1
+    want = np.stack(want)
+    decode_x = xs.cpu().numpy()
+    del aparams, k, v, xs
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    times["references: decode"] = time.perf_counter() - t0
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_phase19_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn(sharded_lm_rank, SHARD_RANKS, device=str(dev.type), backend="gloo",
+                      args=(sizes, str(dev.type), workdir, decode_x))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0 = ranks[0]
+    times["ranks"] = spawn_s
+    t0 = time.perf_counter()
+
+    # (a) the sharded step against the unsharded one
+    expected = sizes["steps"] * sizes["microbatches"] * cfg.num_layers * 2 if cuda else 0
+    gaps = _update_gaps({"sharded": r0["params"], "unsharded": refs["unsharded"]["params"],
+                         "control": refs["control"]["params"]}, init,
+                        (("sharded", "unsharded"), ("sharded", "control"),
+                         ("unsharded", "control")), dev)
+    times["update gaps"] = time.perf_counter() - t0
+    worst = {k: max(g.values()) for k, g in gaps.items()}
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(sizes["steps"])]
+    gloo_s = max(r["gather_s"] for r in ranks) + max(r["reduce_s"] for r in ranks)
+    tokens = sizes["batch"] * sizes["seq"]
+    print(f"  (a) {sizes['arch']}, {cfg.num_layers} of 24 layers, {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters; B={sizes['batch']} S={sizes['seq']}, {sizes['microbatches']} "
+          f"microbatches, mesh {sizes['mesh']} (data, model) under '2d', AdamW lr {sizes['lr']}")
+    print(f"      losses: sharded {[round(x, 5) for x in r0['losses']]}, unsharded "
+          f"{[round(x, 5) for x in refs['unsharded']['losses']]}, control (4 microbatches of one "
+          f"row) {[round(x, 5) for x in refs['control']['losses']]}")
+    print(f"      step wall (slowest rank, each ending in a sync): sharded "
+          f"{[round(x, 3) for x in step_s]} s, unsharded on one process "
+          f"{[round(x, 3) for x in refs['unsharded']['step_s']]} s, control "
+          f"{[round(x, 3) for x in refs['control']['step_s']]} s; {tokens / step_s[-1]:.0f} "
+          f"tokens/s sharded at the last step  [{card}]")
+    print(f"      gloo alone at the step's sizes: the weights' gather {max(r['gather_s'] for r in ranks):.3f} s, "
+          f"the gradients' all_reduce over the data group {max(r['reduce_s'] for r in ranks):.3f} s; "
+          f"{gloo_s / step_s[-1]:.1%} of the last step")
+    print(f"      peak memory a rank {[round(r['peak_gb'], 2) for r in ranks]} GB (shards of "
+          f"params, m, v: {[round(r['local_gb'], 3) for r in ranks]} GB); unsharded peak "
+          f"{refs['unsharded']['peak_gb']:.2f} GB; flash launches a rank "
+          f"{[r['launches'] for r in ranks]} (expected {expected}: {sizes['steps']} steps x "
+          f"{sizes['microbatches']} microbatches x {cfg.num_layers} layers x forward and "
+          f"recompute), by variant {r0['by_variant']}")
+    limit = SHARD_UNSHARDED_RATIO * worst["unsharded vs control"]
+    print(f"      update gaps, worst leaf ||delta - delta_ref|| / ||delta_ref||: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limits: vs control {SHARD_CONTROL_TOL:g}, vs unsharded {limit:.3e} = "
+          f"{SHARD_UNSHARDED_RATIO} x the control's gap)")
+    for k, g in gaps.items():
+        top = sorted(g.items(), key=lambda kv: -kv[1])[:3]
+        print(f"        {k}: largest {[(name, round(val, 5)) for name, val in top]}")
+    for r in ranks:
+        wgmma = r["by_variant"].get("wgmma", 0)
+        check(r["launches"] == expected and (wgmma == expected or not cuda),
+              f"rank {r['rank']}: {r['launches']} flash launches ({r['by_variant']}), "
+              f"expected {expected}")
+        check(r["losses"] == r0["losses"], f"rank {r['rank']} saw other losses {r['losses']}")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], refs["unsharded"]["losses"]))
+    check(all(np.isfinite(r0["losses"])) and loss_gap <= 1e-2,
+          f"sharded losses {r0['losses']}, unsharded {refs['unsharded']['losses']}")
+    check(worst["sharded vs control"] <= SHARD_CONTROL_TOL
+          and worst["sharded vs unsharded"] <= limit,
+          f"sharded updates off the unsharded step's: {worst}")
+
+    # (b) the elastic restore
+    print(f"  (b) the weights (params, step) saved from (2, 2) in {r0['save_s']:.2f} s (gathered; "
+          f"rank 0 writes), restored onto ({SHARD_RANKS}, 1) in "
+          f"{max(r['restore_s'] for r in ranks):.2f} s ({[round(r['restored_local_gb'], 3) for r in ranks]} "
+          f"GB a rank), gathered back: equal on every rank "
+          f"{all(r['restored_equal'] for r in ranks)}")
+    check(all(r["restored_equal"] for r in ranks), "the restore onto (4, 1) is not array-equal")
+
+    # (c) the sharded decode
+    dec_err = max(float(np.abs(r["decode"] - want).max()) for r in ranks)
+    scale = float(np.abs(want).max())
+    tick = float(np.median([max(r["tick_s"][i] for r in ranks)
+                            for i in range(sizes["decode_steps"])]))
+    print(f"  (c) sharded decode, {sizes['decode_arch']}'s attention at full width "
+          f"(H {dcfg.num_heads}, KV {dcfg.num_kv_heads}, D {dcfg.head_dim}), float32, B="
+          f"{sizes['decode_batch']}, a cache of {sizes['decode_cache']} over {SHARD_RANKS} "
+          f"ranks, {sizes['decode_steps']} steps from {list(sizes['decode_pos'])}: max |sharded - "
+          f"unsharded| {dec_err:.3e} (tol {SHARD_DECODE_TOL:g} + rel, max |out| {scale:.3f}); "
+          f"a tick {tick * 1e3:.2f} ms wall (median, slowest rank), unsharded on one process "
+          f"{np.median(ref_tick) * 1e3:.2f} ms")
+    off = max(float(np.max(np.abs(r["decode"] - want) - SHARD_DECODE_TOL * np.abs(want)))
+              for r in ranks)
+    check(off <= SHARD_DECODE_TOL, f"the sharded decode is off the unsharded one by {dec_err:.3e}")
+
+    # (d) the collectives
+    m, kdim, n = sizes["ring"]
+    print(f"  (d) compressed_psum of {sizes['psum_elems']} float32 a rank: "
+          f"{max(r['psum_s'] for r in ranks):.3f} s against all_reduce's "
+          f"{max(r['allreduce_s'] for r in ranks):.3f} s; max |compressed - exact| / max |exact| "
+          f"{max(r['psum_rel'] for r in ranks):.4f} (tol {SHARD_PSUM_TOL}); equal to the plain "
+          f"computation {all(r['psum_equal_plain'] for r in ranks)}")
+    print(f"      ring_allgather_matmul, m {m} k {kdim} n {SHARD_RANKS} x {n}: "
+          f"{max(r['ring_s'] for r in ranks) * 1e3:.2f} ms against all_gather + matmul "
+          f"{max(r['allgather_matmul_s'] for r in ranks) * 1e3:.2f} ms; max rel err vs x @ w "
+          f"{max(r['ring_rel'] for r in ranks):.3e} (tol {SHARD_RING_TOL:g})  [{card}]")
+    for r in ranks:
+        check(r["psum_rel"] < SHARD_PSUM_TOL and r["psum_equal_plain"],
+              f"rank {r['rank']}: compressed_psum {r['psum_rel']}, plain {r['psum_equal_plain']}")
+        check(r["ring_rel"] <= SHARD_RING_TOL, f"rank {r['rank']}: ring {r['ring_rel']}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 19 took {seconds:.1f} s ({spawn_s:.1f} s in the ranks): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + "; rank 0's parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in r0["times"].items())
+          + f", start-up and the results' return {spawn_s - sum(r0['times'].values()):.1f} s")
+    return dict(launches=sum(r["launches"] for r in ranks),
+                launches_by_rank=[r["launches"] for r in ranks],
+                step_s=step_s, unsharded_step_s=refs["unsharded"]["step_s"],
+                gloo_share=gloo_s / step_s[-1], peak_gb=[r["peak_gb"] for r in ranks],
+                update_gaps=worst, decode_tick_ms=tick * 1e3, decode_max_abs=dec_err,
+                psum_s=max(r["psum_s"] for r in ranks),
+                allreduce_s=max(r["allreduce_s"] for r in ranks),
+                ring_ms=max(r["ring_s"] for r in ranks) * 1e3,
+                allgather_matmul_ms=max(r["allgather_matmul_s"] for r in ranks) * 1e3,
+                seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU",
@@ -4457,6 +4924,9 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
     contracts = contract_phase(dev, card, [
         *(a for o in ("lex", "blocked") for a in ordered["results"][o]["contracts"]),
         *served["contracts"], *engine["contracts"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_lm = sharded_lm_phase(dev, card)
     row_run = ordered["launches"].get("rows", 0)
     mttkrp_entry["launches_by_path"] = {
         "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
@@ -4531,8 +5001,11 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
         **decode_launches(fams, "flash"),
         **{f"train steps, {arch} (phase 18{'c' if arch == 'zamba2-1.2b' else 'd'})":
                families["trained"]["train"][arch]["launches"]["flash"]
-           for arch in ("zamba2-1.2b", "whisper-base", VLM_ARCH)}}
+           for arch in ("zamba2-1.2b", "whisper-base", VLM_ARCH)},
+        f"sharded train step, {SHARD_LM['arch']} {SHARD_LM['layers']} layers, {SHARD_RANKS} "
+        "gloo ranks (phase 19)": sharded_lm["launches"]}
     flash_entry["phase17_shapes"] = families["flash_shapes"]
+    flash_entry["sharded_lm"] = {k: v for k, v in sharded_lm.items() if k != "launches"}
     flash_entry["launches"] = sum(flash_entry["launches_by_path"].values())
     flash_entry["lse_max_abs_err"] = trained["lse"]["max_abs_err"]
     flash_entry["training"] = {k: trained[k] for k in ("lse", "grad", "moe", "reduced", "full")}

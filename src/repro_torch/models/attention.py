@@ -23,8 +23,10 @@ and a dk/dv pass as in JAX (whose backward is plain ``jnp`` too), so no
 sequence at its own position (continuous batching); it is a plain
 PyTorch product, as JAX's is plain ``jnp``, and reaches no kernel.
 
-Not ported: ``decode_attention(lse_partial=True)``, whose one caller is the
-sharded decode (ROADMAP.md Queue 1 item 10).
+With ``lse_partial`` it returns a window's flash-decoding partials (the
+normalised output and its log-sum-exp), which
+``distributed.decode.sharded_decode_attention`` combines across the ranks
+that hold the cache's sequence windows.
 """
 
 from __future__ import annotations
@@ -275,13 +277,12 @@ def decode_attention(
     write raises (on the card, a device-side assert).  ``rope_pos``
     decouples the rotary position from the cache and mask position.
     Scores are float32; probabilities are cast back to the activations'
-    dtype, as in JAX.  Returns ``(out (B, 1, d_model), cache_k, cache_v)``.
+    dtype, as in JAX.  Returns ``(out (B, 1, d_model), cache_k, cache_v)``,
+    or with ``lse_partial`` the normalised local output before the output
+    projection (B, 1, H, hd), its float32 log-sum-exp (B, 1, H) and the
+    caches: the partials the sharded decode (``distributed/decode.py``)
+    combines across windows.
     """
-    if lse_partial:
-        raise NotImplementedError(
-            "decode_attention(lse_partial=True) is not ported yet: its one caller is the "
-            "sharded decode (distributed/decode.py), ROADMAP.md Queue 1 item 10"
-        )
     b, hd = x.shape[0], cfg.head_dim
     pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (b,)).long()
     rp = pos if rope_pos is None else torch.broadcast_to(
@@ -297,6 +298,18 @@ def decode_attention(
     scores = torch.einsum("bqkgd,btkd->bkgqt", qg, cache_k.to(q.dtype)).float() * hd**-0.5
     valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]  # (B, skv)
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    if lse_partial:
+        # flash-decoding partials: the normalised local output and its lse, so
+        # windows combine as sum_i exp(lse_i - M) out_i / sum_i exp(lse_i - M)
+        m = scores.amax(dim=-1)
+        p = torch.exp(scores - m[..., None])
+        l = p.sum(dim=-1).clamp_min(1e-30)  # noqa: E741
+        num = torch.einsum("bkgqt,btkd->bkgqd", p.to(q.dtype), cache_v.to(q.dtype))
+        out_local = num / l[..., None].to(num.dtype)
+        lse = m + torch.log(l)
+        out_local = out_local.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
+        lse = lse.permute(0, 3, 1, 2).reshape(b, 1, cfg.num_heads)
+        return out_local, lse, cache_k, cache_v
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqt,btkd->bkgqd", probs, cache_v.to(q.dtype))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)

@@ -14,8 +14,10 @@ The modules' parameters take gradients (the training path,
 identity whose backward rounds the cotangent to bf16, as JAX's custom VJP
 does at every layer boundary.
 
-Not ported here: ``shard_hint`` / ``head_shard`` (sharding; no-ops outside
-a mesh).
+Not ported: ``shard_hint`` / ``head_shard``, GSPMD's sharding hints (no-ops
+outside a mesh).  The port's sharded train step
+(``distributed.sharded_step``) places its weights and microbatch rows
+itself and needs no hint inside the model.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 
 ``input_specs`` gives tensors on the ``meta`` device, PyTorch's shapes
 without storage, where JAX gives ``ShapeDtypeStruct``s.  JAX's
-``_ubatch_constraint`` is a sharding hint, a no-op outside a mesh, and is
-not ported.  The loss and train steps take every family; a batch carries
+``_ubatch_constraint`` is a GSPMD sharding hint, a no-op outside a mesh, and
+is not ported: the sharded train step (``distributed.sharded_step``) places
+each microbatch's rows on the data group itself, as the hint asks GSPMD to.
+The loss and train steps take every family; a batch carries
 ``frames`` for the encoder-decoder family and may carry ``prefix_embeds``
 for the vision frontend, as ``input_specs`` gives them, and microbatches
 split them along their first axis with the tokens.
@@ -28,8 +30,9 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.tree import param_tree, tree_leaves, tree_map
 
-__all__ = ["init_decode_state", "init_model", "input_specs", "make_decode_fn", "make_loss_fn",
-           "make_prefill_fn", "make_train_step"]
+__all__ = ["check_finite", "compute_weight", "init_decode_state", "init_model", "input_specs",
+           "make_decode_fn", "make_loss_fn", "make_prefill_fn", "make_train_step",
+           "microbatch_grads", "on_device", "sgd_update"]
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -43,9 +46,69 @@ def make_loss_fn(cfg: ModelConfig):
     return loss_fn
 
 
-def _on_device(batch: dict, dev: torch.device) -> dict:
+def on_device(batch: dict, dev: torch.device) -> dict:
+    """The batch's arrays (numpy or tensors) as tensors on ``dev``."""
     return {k: (torch.from_numpy(np.asarray(v)) if not isinstance(v, torch.Tensor) else v).to(dev)
             for k, v in batch.items()}
+
+
+def compute_weight(p: torch.Tensor, cfg: ModelConfig, cast: bool = True) -> torch.Tensor:
+    """The tensor a train step computes with: with ``cast``, one of 2 or more
+    dimensions cast to ``cfg.dtype`` (JAX's ``cast_params_bf16``)."""
+    return p.to(cfg.dtype) if cast and p.dim() >= 2 else p
+
+
+def microbatch_grads(loss_fn, tree: dict, batch: dict, n: int, *, select=None, into=None):
+    """``(loss, grads)`` of ``loss_fn`` against ``tree``'s leaves (which
+    require grad), as the mean over ``n`` microbatches.
+
+    ``select(i) -> (microbatch, scale)`` gives microbatch i and the factor on
+    its loss (``None`` for 1); by default it is JAX's split of the batch's
+    first axis into (n, B/n) rows, factor 1.  Float32 gradients are summed
+    into ``into`` (zeroed buffers, one per leaf) or new buffers, then
+    divided by ``n``; with ``n`` 1, no ``select`` and no ``into`` they are
+    autograd's, in the leaves' types, as in JAX."""
+    leaves = tree_leaves(tree)
+    if n == 1 and select is None and into is None:
+        loss = loss_fn(tree, batch)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    if select is None:
+        for k, v in batch.items():
+            if v.shape[0] % n:
+                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a multiple of {n}")
+
+        def select(i):
+            return {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                    for k, v in batch.items()}, None
+    dev = leaves[0].device
+    acc = into if into is not None else [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                                         for p in leaves]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(n):
+        mb, scale = select(i)
+        loss = loss_fn(tree, mb)
+        if scale is not None:
+            loss = loss * scale
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            a += g.float()
+        loss_sum += loss.detach()
+    inv = 1.0 / n
+    return loss_sum * inv, [a.mul_(inv) for a in acc]
+
+
+def check_finite(loss: torch.Tensor) -> None:
+    """Raise ``FloatingPointError`` on a non-finite loss (one host sync)."""
+    if not bool(torch.isfinite(loss)):
+        raise FloatingPointError(f"non-finite loss {float(loss)}")
+
+
+def sgd_update(state: dict, params: list, grads: list) -> None:
+    """``p -= lr * g`` in place, at ``state["lr"]`` (default 1e-3)."""
+    lr = state.get("lr", 1e-3)
+    lr = lr.to_local() if hasattr(lr, "to_local") else lr
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(lr * g.to(p.dtype))
 
 
 def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int = 1,
@@ -57,12 +120,13 @@ def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int =
 
     As in JAX: with ``num_microbatches`` > 1 the batch is split along its
     first axis, float32 gradients are summed over the microbatches and their
-    mean taken, with the mean loss; ``cast_params_bf16`` casts tensors of 2
-    or more dimensions to ``cfg.dtype`` once per step, before the
-    microbatches, and the gradients are taken against those cast tensors
-    (the gradient through the cast to the float32 master has the same
-    values); with ``optimizer=None`` the update is SGD at ``state["lr"]``
-    (default 1e-3); ``optimizer.compressor`` compresses the gradients first.
+    mean taken, with the mean loss (``microbatch_grads``); ``cast_params_bf16``
+    casts tensors of 2 or more dimensions to ``cfg.dtype`` once per step,
+    before the microbatches, and the gradients are taken against those cast
+    tensors (the gradient through the cast to the float32 master has the
+    same values); with ``optimizer=None`` the update is SGD at
+    ``state["lr"]`` (default 1e-3); ``optimizer.compressor`` compresses the
+    gradients first.
 
     The update is made in place, into the state's tensors, and the same
     state dict is returned.  It starts only after every gradient has been
@@ -75,49 +139,20 @@ def make_train_step(cfg: ModelConfig, optimizer=None, *, num_microbatches: int =
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches={num_microbatches} must be >= 1")
 
-    def leaf(p: torch.Tensor) -> torch.Tensor:
-        if cast_params_bf16 and p.dim() >= 2:
-            p = p.to(cfg.dtype)
-        return p.detach().requires_grad_()
-
-    def grads_of(tree: dict, batch: dict):
-        tree = tree_map(leaf, tree)
-        leaves = tree_leaves(tree)
-        if num_microbatches == 1:
-            loss = loss_fn(tree, batch)
-            grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), grads
-        n = num_microbatches
-        for k, v in batch.items():
-            if v.shape[0] % n:
-                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a multiple of {n}")
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in leaves]
-        for i in range(n):
-            mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i] for k, v in batch.items()}
-            loss = loss_fn(tree, mb)
-            for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
-                a += g.float()
-            loss_sum += loss.detach()
-        inv = 1.0 / n
-        return loss_sum * inv, [a.mul_(inv) for a in acc]
-
     def train_step(state: dict, batch: dict):
         tree = param_tree(state["params"])
         where = tree_leaves(tree)[0].device
         if where != dev:
             raise ValueError(f"model weights are on {where}, the train step runs on {dev}")
-        loss, grads = grads_of(tree, _on_device(batch, dev))
-        if not bool(torch.isfinite(loss)):
-            raise FloatingPointError(f"non-finite loss {float(loss)}")
+        weights = tree_map(lambda p: compute_weight(p, cfg, cast_params_bf16).detach()
+                           .requires_grad_(), tree)
+        loss, grads = microbatch_grads(loss_fn, weights, on_device(batch, dev), num_microbatches)
+        check_finite(loss)
+        if optimizer is None:
+            sgd_update(state, tree_leaves(tree), grads)
+            return state, {"loss": loss}
         it = iter(grads)
         grads = tree_map(lambda _: next(it), tree)
-        if optimizer is None:
-            lr = state.get("lr", 1e-3)
-            with torch.no_grad():
-                for p, g in zip(tree_leaves(tree), tree_leaves(grads)):
-                    p.sub_(lr * g.to(p.dtype))
-            return state, {"loss": loss}
         if optimizer.compressor is not None:
             grads, state = optimizer.compressor.compress_tree(grads, state)
         state, metrics = optimizer.apply_gradients(state, grads)

@@ -52,14 +52,17 @@ class AdamW:
     # error-feedback gradient compression hook (optim.grad_compress)
     compressor: object | None = None
 
-    def apply_gradients(self, state: dict, grads) -> tuple[dict, dict]:
+    def apply_gradients(self, state: dict, grads, *,
+                        grad_norm: torch.Tensor | None = None) -> tuple[dict, dict]:
         """Update ``state`` in place from ``grads`` (a tree of ``params``'
-        structure); returns it with ``{"grad_norm", "lr"}``."""
+        structure); returns it with ``{"grad_norm", "lr"}``.  ``grad_norm``
+        is the norm to clip by when ``grads`` and ``state`` hold one rank's
+        shards of the leaves (the sharded train step): the full gradients'."""
         step = state["step"] + 1
         lr = state["lr"]
         if self.schedule is not None:
             lr = lr * self.schedule(step)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         bc1 = 1.0 - b1 ** step.float()

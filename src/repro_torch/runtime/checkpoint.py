@@ -12,8 +12,16 @@ on restore.  ``CheckpointManager`` keeps the newest ``keep``.
 A state is a nested dict of tensors, lists of per-layer dicts (stacked) and
 ``Transformer``s (saved as their ``params()`` tree).  Restoring builds new
 tensors, each on its target leaf's device; a ``Transformer`` in the target
-comes back as a new ``Transformer`` of the same config.  ``shardings=`` (an
-elastic restore onto another JAX mesh) is not ported and is refused.
+comes back as a new ``Transformer`` of the same config.
+
+Sharded states (``DTensor`` leaves, ``distributed.sharding.shard_state``):
+every rank calls ``save_checkpoint``; each leaf is gathered whole, rank 0
+writes the same format, and the others wait at a barrier.  The elastic
+restore, ``restore_checkpoint(shardings=, mesh=)``, lands each leaf with
+its target spec on ``mesh``, whatever mesh wrote it (the file holds whole
+arrays, also when JAX wrote it from a sharded state): each rank reads the
+file and keeps its slice, with no collective; a ``Transformer`` in the
+target then comes back as its ``params()`` tree.
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import tree_to_numpy
+from repro_torch.distributed.sharding import gather_state, is_sharded, shard_tensor
 from repro_torch.models.transformer import Transformer
 
 __all__ = ["CheckpointManager", "latest_step", "restore_checkpoint", "save_checkpoint"]
@@ -50,10 +60,23 @@ def _flatten(tree, prefix: tuple = ()) -> dict[str, np.ndarray]:
 
 def save_checkpoint(directory: str | Path, step: int, state: Any, *,
                     extra_metadata: dict | None = None) -> Path:
-    """Write ``<directory>/<step>`` atomically.  Returns the final path."""
+    """Write ``<directory>/<step>`` atomically.  Returns the final path.  A
+    sharded state is a collective: every rank calls it, rank 0 writes."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"{step:010d}"
+    if is_sharded(state):
+        state = gather_state(state)
+        if dist.get_rank() == 0:
+            _write(directory, final, step, state, extra_metadata)
+        dist.barrier()
+        return final
+    _write(directory, final, step, state, extra_metadata)
+    return final
+
+
+def _write(directory: Path, final: Path, step: int, state: Any,
+           extra_metadata: dict | None) -> None:
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"{step:010d}.tmp"
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -76,7 +99,6 @@ def save_checkpoint(directory: str | Path, step: int, state: Any, *,
     if final.exists():
         shutil.rmtree(final)
     os.replace(tmp, final)  # atomic publish
-    return final
 
 
 def _complete_steps(directory: Path) -> list[int]:
@@ -98,14 +120,19 @@ def latest_step(directory: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
-def _build(target, prefix: tuple, index: tuple, leaf_array):
-    """A new tree of ``target``'s structure from the checkpoint's arrays."""
+def _build(target, prefix: tuple, index: tuple, leaf_array, shardings=None, mesh=None):
+    """A new tree of ``target``'s structure from the checkpoint's arrays; with
+    ``shardings``, each leaf a ``DTensor`` of this rank's slice on ``mesh``."""
     if isinstance(target, Transformer):
-        return Transformer(target.cfg, _build(target.params(), prefix, index, leaf_array))
+        tree = _build(target.params(), prefix, index, leaf_array, shardings, mesh)
+        return tree if shardings is not None else Transformer(target.cfg, tree)
     if isinstance(target, dict):
-        return {k: _build(v, prefix + (str(k),), index, leaf_array) for k, v in target.items()}
+        return {k: _build(v, prefix + (str(k),), index, leaf_array,
+                          None if shardings is None else shardings[k], mesh)
+                for k, v in target.items()}
     if isinstance(target, (list, tuple)):
-        return type(target)(_build(item, prefix, index + (i,), leaf_array)
+        return type(target)(_build(item, prefix, index + (i,), leaf_array,
+                                   None if shardings is None else shardings[i], mesh)
                             for i, item in enumerate(target))
     name = "/".join(prefix)
     arr = leaf_array(name)[index]
@@ -113,16 +140,20 @@ def _build(target, prefix: tuple, index: tuple, leaf_array):
     if tuple(arr.shape) != want:
         raise ValueError(f"{name}: checkpoint shape {arr.shape} != {want}")
     device = target.device if isinstance(target, torch.Tensor) else "cpu"
+    if shardings is not None:
+        return shard_tensor(torch.from_numpy(np.asarray(arr)), shardings, mesh, device=device)
     return torch.from_numpy(np.array(arr)).to(device)
 
 
 def restore_checkpoint(directory: str | Path, target: Any, *, step: int | None = None,
-                       shardings: Any = None) -> tuple[Any, dict]:
+                       shardings: Any = None, mesh=None) -> tuple[Any, dict]:
     """Restore into the structure of ``target``; returns ``(state, metadata)``.
-    Each leaf lands on the device of ``target``'s leaf."""
-    if shardings is not None:
-        raise NotImplementedError("restore_checkpoint(shardings=) is not ported: each leaf is "
-                                  "restored onto its target leaf's device")
+    Each leaf lands on the device of ``target``'s leaf; with ``shardings``
+    (``PartitionSpec``s in the target's structure, a ``Transformer``'s as
+    its ``params()`` tree: ``train_state_shardings``), as a ``DTensor`` of
+    this rank's slice on ``mesh``, whatever mesh wrote the checkpoint."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore_checkpoint(shardings=) needs the target mesh (mesh=)")
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -137,7 +168,7 @@ def restore_checkpoint(directory: str | Path, target: Any, *, step: int | None =
                 raise KeyError(f"checkpoint missing leaf {name!r}")
             return z[meta["key"]]
 
-        state = _build(target, (), (), _cached(leaf_array))
+        state = _build(target, (), (), _cached(leaf_array), shardings, mesh)
     return state, manifest["metadata"]
 
 
@@ -165,7 +196,8 @@ class CheckpointManager:
         if step % self.save_every != 0:
             return False
         save_checkpoint(self.directory, step, state, extra_metadata=metadata)
-        self._gc()
+        if not is_sharded(state) or dist.get_rank() == 0:  # the writer collects
+            self._gc()
         return True
 
     def _gc(self):
@@ -173,5 +205,5 @@ class CheckpointManager:
         for s in _complete_steps(directory)[: -self.keep]:
             shutil.rmtree(directory / f"{s:010d}", ignore_errors=True)
 
-    def restore_latest(self, target, *, shardings=None):
-        return restore_checkpoint(self.directory, target, shardings=shardings)
+    def restore_latest(self, target, *, shardings=None, mesh=None):
+        return restore_checkpoint(self.directory, target, shardings=shardings, mesh=mesh)

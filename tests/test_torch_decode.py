@@ -118,13 +118,31 @@ def test_project_qkv_positions_and_compute_kv_match_jax():
 
 
 def test_lse_partial_raises_naming_its_item():
+    """``lse_partial``, once refused (naming ROADMAP item 10), now ported: the
+    normalised local output and its lse against JAX's, with and without the
+    cache write, and for a window that holds no key (mask position -1)."""
     jcfg, tcfg = _configs()
-    tp = {k: torch.from_numpy(np.array(v)) for k, v in
-          jattn.init_attention(jax.random.PRNGKey(0), jcfg).items()}
-    cache = torch.zeros((1, 4, tcfg.num_kv_heads, tcfg.head_dim))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tattn.decode_attention(tp, tcfg, torch.zeros((1, 1, tcfg.d_model)), cache, cache.clone(),
-                               0, lse_partial=True)
+    params = {k: np.array(v) for k, v in jattn.init_attention(jax.random.PRNGKey(0), jcfg).items()}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    rng = np.random.default_rng(4)
+    cache_k, cache_v = (rng.standard_normal((3, 6, tcfg.num_kv_heads, tcfg.head_dim))
+                        .astype(np.float32) for _ in range(2))
+    x = rng.standard_normal((3, 1, tcfg.d_model)).astype(np.float32)
+    for pos, rope_pos, update in (([0, 2, 5], None, True), ([-1, 3, 5], [4, 9, 13], False)):
+        want = jattn.decode_attention(jp, jcfg, jnp.asarray(x), jnp.asarray(cache_k),
+                                      jnp.asarray(cache_v), jnp.asarray(pos),
+                                      update_cache=update, lse_partial=True,
+                                      rope_pos=None if rope_pos is None else jnp.asarray(rope_pos))
+        got = tattn.decode_attention(tp, tcfg, torch.from_numpy(x), torch.from_numpy(cache_k.copy()),
+                                     torch.from_numpy(cache_v.copy()), torch.tensor(pos),
+                                     update_cache=update, lse_partial=True,
+                                     rope_pos=None if rope_pos is None else torch.tensor(rope_pos))
+        assert len(got) == 4
+        for g, w in zip(got, want):
+            _close(g, w, F32_TOL)
+        assert got[1].dtype == torch.float32 and got[0].shape == (3, 1, tcfg.num_heads,
+                                                                 tcfg.head_dim)
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
