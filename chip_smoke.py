@@ -263,7 +263,17 @@ host while phases 6-8, 13, 16, 17 and 18 keep the card busy.
      unsharded ``decode_attention`` (3e-4); (d) ``compressed_psum`` of 64 M
      float32 a rank (5% of the exact sum, equal to the plain computation)
      and ``ring_allgather_matmul`` (m 4096, k 2048, n 4 x 2048; 2e-4 of x @
-     w), each beside ``all_reduce`` and ``all_gather`` + matmul.
+     w), each beside ``all_reduce`` and ``all_gather`` + matmul.  Rank 0's
+     first step runs under ``torch.profiler`` for phase 20 (c); the step
+     time and gloo's share are the last step's, untraced.
+ 20. the dry run (``launch/dryrun.py``) against the card: (a) phase 7's
+     prefill and phase 16e's train step priced on a (1, 1) mesh beside
+     their measured times and peaks, the train cell's argument bytes equal
+     to phase 16e's; (b) the op counter on the card over internlm2-1.8b's
+     prefill at 2 layers, equal to its count on ``meta`` (1e-9), the flash
+     kernel reached through its custom op; (c) phase 19's traced
+     collectives equal to the closed form, gloo's seconds per byte beside
+     the NVLink term; (d) the phase's seconds and the script's.
 
 The last four lines are phase 15's facts (``{"phase15": ...}``), the card's
 ``name, power.limit``, a JSON object
@@ -362,6 +372,14 @@ from repro_torch.dse import (  # noqa: E402
     measured_vs_modeled,
 )
 from repro_torch.experiments import engine as texp_engine  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
+from repro_torch.launch import dryrun as tdryrun  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
+from repro_torch.perf import coll_breakdown as tcollb  # noqa: E402
+from repro_torch.perf.coll_stats import collective_stats, ring_bytes  # noqa: E402
+from repro_torch.perf.op_cost import OpCounter  # noqa: E402
+from repro_torch.perf.roofline import H100_SXM  # noqa: E402
+from repro_torch.tree import param_tree, tree_leaves  # noqa: E402
 from repro_torch.models.model_zoo import init_decode_state, input_specs, make_decode_fn  # noqa: E402
 from repro_torch.runtime.serve_loop import BatchServer, ServeConfig  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -373,11 +391,11 @@ from repro_torch.serve import (  # noqa: E402
     synthetic_trace,
 )
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+HBM_BYTES_PER_S = H100_SXM.hbm_bw  # H100 SXM device memory, 3.35 TB/s (perf/roofline.py)
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
 F64_TC_FLOPS_PER_S = 67e12  # H100 SXM float64 on the tensor cores (NVIDIA's data sheet)
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+BF16_FLOPS_PER_S = H100_SXM.peak_bf16_flops  # H100 SXM dense bf16 on the tensor cores, 989 TFLOP/s
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
 FLASH_F32_TOL = 2e-5  # tests/test_flash_kernel.py
@@ -1290,6 +1308,8 @@ def lm_phases(dev, card: str) -> dict:
     by_variant = dict(fkmod.flash_attention_cuda.launches_by_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prefill_ms = float(np.median(times))
+    held_weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    held_tokens = batch["tokens"].numel() * batch["tokens"].element_size()
     tokens = PREFILL_BATCH * PREFILL_SEQ
     check(logits.shape == (PREFILL_BATCH, cfg.padded_vocab), f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite next-token logits")
@@ -1398,6 +1418,8 @@ def lm_phases(dev, card: str) -> dict:
         prefill_ms=prefill_ms,
         prefill_tokens_per_s=tokens / prefill_ms * 1e3,
         prefill_peak_gb=peak_gb,
+        prefill_peak_bytes=peak_gb * 1e9,
+        prefill_held_bytes=dict(weights=held_weights, tokens=held_tokens),
         prefill_profile_ms=prof,
     )
 
@@ -3134,6 +3156,9 @@ def full_training_phase(dev, card: str, workdir: str, parts: dict) -> dict:
     step_fn = tzoo.make_train_step(cfg, AdamW(), num_microbatches=TRAIN_MICROBATCHES,
                                    device=dev)
     batch = next(SyntheticLMStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1))
+    arg_bytes = (sum(t.numel() * t.element_size()
+                     for t in tree_leaves(dict(state, params=param_tree(state["params"]))))
+                 + sum(np.asarray(v).nbytes for v in batch.values()))
     prof = classify_step(lambda: step_fn(state, batch))
     n_layer_mb = cfg.num_layers * TRAIN_MICROBATCHES
     isolated = {  # one microbatch-layer's ms (CUDA events) times the count in a step
@@ -3161,7 +3186,8 @@ def full_training_phase(dev, card: str, workdir: str, parts: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, losses=losses, step_s=step_s, median_step_s=median_s,
-                tokens_per_s=tokens / median_s, peak_gb=peak_gb, model_flops=model_flops,
+                tokens_per_s=tokens / median_s, peak_gb=peak_gb, arg_bytes=arg_bytes,
+                model_flops=model_flops,
                 mfu=model_flops / median_s / BF16_FLOPS_PER_S, busy_ms=busy,
                 by_kernel_name_ms=prof["classes"], by_isolated_ms=dict(isolated, rest=rest))
 
@@ -4491,7 +4517,11 @@ def sharded_lm_rank(sizes: dict, device: str, workdir: str, decode_x) -> dict:
     from repro_torch.distributed import rank_device
     from repro_torch.distributed.collectives import compressed_psum, ring_allgather_matmul
     from repro_torch.distributed.decode import sharded_decode_attention
-    from repro_torch.distributed.sharded_step import data_group_axes, sharded_train_step
+    from repro_torch.distributed.sharded_step import (
+        data_group_axes,
+        sharded_train_step,
+        step_collectives,
+    )
     from repro_torch.distributed.sharding import (
         P,
         batch_shardings,
@@ -4534,11 +4564,23 @@ def sharded_lm_rank(sizes: dict, device: str, workdir: str, decode_x) -> dict:
     mark("set-up")
     fkmod.reset_launch_counts()  # the main path of phase 19 starts here
     step_s, losses = [], []
-    for batch in batches:
-        (sstate, metrics), seconds = _wall(dev, lambda: step(sstate, batch))
+    for i, batch in enumerate(batches):
+        # phase 20 (c): rank 0's first step under torch.profiler, its collectives
+        # read back; the phase's step time and gloo share are the last step's,
+        # which runs untraced
+        traced = rank == 0 and i == 0
+        with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                     record_shapes=True) if traced
+              else contextlib.nullcontext()) as prof:
+            (sstate, metrics), seconds = _wall(dev, lambda: step(sstate, batch))
+        if traced:
+            trace = os.path.join(workdir, "step.json")
+            prof.export_chrome_trace(trace)
+            out["coll_traced"] = tcollb.records_from_trace(trace)
         losses.append(float(metrics["loss"]))
         step_s.append(seconds)
     out["launches"] = fkmod.flash_attention_cuda.launches  # ... and ends here
+    out["coll_closed"] = step_collectives(cfg, sstate["params"], ssh["params"], mesh, bsh)
     out["by_variant"] = dict(fkmod.flash_attention_cuda.launches_by_variant)
     out["step_s"], out["losses"] = step_s, losses
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
@@ -4747,7 +4789,8 @@ def sharded_lm_phase(dev, card: str, sizes: dict = SHARD_LM) -> dict:
     print(f"      losses: sharded {[round(x, 5) for x in r0['losses']]}, unsharded "
           f"{[round(x, 5) for x in refs['unsharded']['losses']]}, control (4 microbatches of one "
           f"row) {[round(x, 5) for x in refs['control']['losses']]}")
-    print(f"      step wall (slowest rank, each ending in a sync): sharded "
+    print(f"      step wall (slowest rank, each ending in a sync; rank 0's first step runs "
+          f"under the profiler for phase 20 (c)): sharded "
           f"{[round(x, 3) for x in step_s]} s, unsharded on one process "
           f"{[round(x, 3) for x in refs['unsharded']['step_s']]} s, control "
           f"{[round(x, 3) for x in refs['control']['step_s']]} s; {tokens / step_s[-1]:.0f} "
@@ -4835,7 +4878,125 @@ def sharded_lm_phase(dev, card: str, sizes: dict = SHARD_LM) -> dict:
                 allreduce_s=max(r["allreduce_s"] for r in ranks),
                 ring_ms=max(r["ring_s"] for r in ranks) * 1e3,
                 allgather_matmul_ms=max(r["allgather_matmul_s"] for r in ranks) * 1e3,
+                gather_s=max(r["gather_s"] for r in ranks),
+                reduce_s=max(r["reduce_s"] for r in ranks),
+                coll_traced=r0["coll_traced"], coll_closed=r0["coll_closed"],
                 seconds=seconds)
+
+
+# Phase 20: the dry run (launch/dryrun.py) held against the card.
+DRY_LAYERS = 2  # (b): internlm2-1.8b's prefill at 2 of 24 layers under the op counter
+DRY_FLOPS_RTOL = 1e-9
+ONE_CARD = MeshShape((1, 1), ("data", "model"))
+
+
+def _terms(rec: dict) -> str:
+    r = rec["roofline"]
+    bound = max(r["compute_s"], r["memory_s"], r["collective_s"])
+    return (f"compute {r['compute_s'] * 1e3:.2f} ms, memory {r['memory_s'] * 1e3:.2f} ms, "
+            f"collective {r['collective_s'] * 1e3:.3f} ms; dominant {r['dominant']}, bound "
+            f"{bound * 1e3:.2f} ms")
+
+
+def dryrun_phase(dev, card: str, flash_entry: dict, full: dict, sharded_lm: dict) -> dict:
+    """Phase 20: (a) the dry run of phase 7's prefill and phase 16e's train
+    step on a (1, 1) mesh, beside what those phases measured; (b) the op
+    counter on the card against its count on meta; (c) phase 19's profiled
+    collectives against the closed form; (d) the phase's seconds."""
+    phase("phase 20: the dry run (launch/dryrun.py) against the card")
+    t0 = time.perf_counter()
+    out: dict = {}
+    # (a) the two cells, priced at the H100 record's peaks
+    pcfg, tcfg = get_config(ARCH), get_config(TRAIN_ARCH)
+    pspec = ShapeSpec("prefill_32k", "prefill", PREFILL_SEQ, PREFILL_BATCH)
+    tspec = ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    pre = tdryrun.dryrun_cell(pcfg, pspec, ONE_CARD)
+    trn = tdryrun.dryrun_cell(tcfg, tspec, ONE_CARD, num_microbatches=TRAIN_MICROBATCHES)
+    for label, rec, ms, peak in (
+            (f"{ARCH} prefill B={PREFILL_BATCH} S={PREFILL_SEQ}", pre,
+             flash_entry["prefill_ms"], flash_entry["prefill_peak_bytes"]),
+            (f"{TRAIN_ARCH} train step B={TRAIN_BATCH} S={TRAIN_SEQ}, {TRAIN_MICROBATCHES} "
+             f"microbatches, remat {tcfg.remat_policy}", trn, full["median_step_s"] * 1e3,
+             full["peak_gb"] * 1e9)):
+        r = rec["roofline"]
+        bound_ms = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+        print(f"  (a) {label}: {_terms(rec)} at {H100_SXM.name}'s peaks; measured median "
+              f"{ms:.2f} ms (share of bound {bound_ms / ms:.3f}); "
+              f"modelled peak {r['hbm_gb_per_chip'] * 2**30 / 1e9:.2f} GB beside "
+              f"max_memory_allocated {peak / 1e9:.2f} GB; {rec['flops_per_chip']:.4e} flops, "
+              f"{rec['bytes_per_chip'] / 1e9:.2f} GB moved; {rec['port_path']}  [{card}]")
+    held = flash_entry["prefill_held_bytes"]
+    pre_args = pre["memory_analysis"]["argument_size_in_bytes"]
+    print(f"      prefill arguments: the dry run's {pre_args} B (bf16 weights, JAX's serving "
+          f"rule, and int32 tokens) beside phase 7's {held['weights'] + held['tokens']} B "
+          f"(float32 masters {held['weights']} B, cast to bf16 on use, P8; tokens "
+          f"{held['tokens']} B): phase 7 holds {held['weights'] + held['tokens'] - pre_args} B more")
+    trn_args = trn["memory_analysis"]["argument_size_in_bytes"]
+    print(f"      train arguments: the dry run's {trn_args} B, phase 16e's state and batch "
+          f"{full['arg_bytes']} B")
+    check(trn_args == full["arg_bytes"], f"the train cell's argument bytes {trn_args} differ "
+                                         f"from phase 16e's {full['arg_bytes']}")
+    out.update(prefill=dict(roofline=pre["roofline"], measured_ms=flash_entry["prefill_ms"],
+                            flops=pre["flops_per_chip"], bytes=pre["bytes_per_chip"],
+                            args=pre_args),
+               train=dict(roofline=trn["roofline"], measured_ms=full["median_step_s"] * 1e3,
+                          flops=trn["flops_per_chip"], bytes=trn["bytes_per_chip"],
+                          args=trn_args))
+
+    # (b) the counter on the card against its count on meta, 2 layers
+    cfg2 = dataclasses.replace(pcfg, num_layers=DRY_LAYERS)
+    meta = tdryrun.dryrun_cell(cfg2, pspec, ONE_CARD)["flops_per_chip"]
+    model = init_model(cfg2, seed=0, device=dev).to(torch.bfloat16)
+    stream = SyntheticLMStream(cfg2.vocab_size, PREFILL_SEQ, PREFILL_BATCH, seed=0)
+    batch = {"tokens": torch.from_numpy(next(stream)["tokens"]).to(dev)}
+    prefill = make_prefill_fn(cfg2, device=dev)
+    before = fkmod.flash_attention_cuda.launches
+    with OpCounter() as counter:
+        logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    launches = fkmod.flash_attention_cuda.launches - before
+    got = counter.cost.flops
+    rel = abs(got - meta) / meta
+    print(f"  (b) {ARCH} prefill at {DRY_LAYERS} of {pcfg.num_layers} layers on the card under "
+          f"the op counter: {got:.6e} flops ({counter.cost.kernel_flops:.4e} of them the flash "
+          f"kernel's custom op, {counter.cost.op_counts['kernel']} calls), the meta count "
+          f"{meta:.6e}, relative gap {rel:.2e} (tol {DRY_FLOPS_RTOL:g}); flash launches {launches}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits under the op counter")
+    check(rel <= DRY_FLOPS_RTOL, f"the counter on the card ({got}) differs from meta ({meta})")
+    check(launches == DRY_LAYERS and counter.cost.op_counts["kernel"] == DRY_LAYERS,
+          f"the flash kernel ran {launches} times through {counter.cost.op_counts['kernel']} "
+          f"custom-op calls, not {DRY_LAYERS}")
+    del model, logits, batch
+    out.update(counter_flops=got, meta_flops=meta, launches=launches)
+
+    # (c) phase 19's profiled step against the closed form
+    traced, closed = sharded_lm["coll_traced"], sharded_lm["coll_closed"]
+
+    def by_kind(records):
+        return {k: (sum(1 for r in records if r["kind"] == k),
+                    sum(r["result_bytes"] for r in records if r["kind"] == k))
+                for k in sorted({r["kind"] for r in records})}
+
+    print(f"  (c) phase 19's first sharded step on rank 0, traced: {by_kind(traced)}; the closed "
+          f"form: {by_kind(closed)} (kind: calls, result bytes)")
+    check(by_kind(traced) == by_kind(closed), "the traced collectives differ from the closed form")
+    for kind, seconds in (("all-gather", sharded_lm["gather_s"]),
+                          ("all-reduce", sharded_lm["reduce_s"])):
+        ring = sum(ring_bytes(r["kind"], r["result_bytes"], r["group"]) for r in closed
+                   if r["kind"] == kind)
+        if ring:
+            print(f"      {kind}: {ring / 1e9:.3f} GB ring bytes a rank; gloo {seconds:.3f} s "
+                  f"({seconds / ring * 1e9:.3f} s/GB) against the NVLink term "
+                  f"{ring / H100_SXM.link_bw * 1e3:.2f} ms ({1e9 / H100_SXM.link_bw:.4f} s/GB)")
+    out["collectives"] = dict(traced=by_kind(traced), closed=by_kind(closed),
+                              ici_bytes=collective_stats(closed).ici_bytes_per_chip,
+                              gather_s=sharded_lm["gather_s"], reduce_s=sharded_lm["reduce_s"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  (d) phase 20 took {out['seconds']:.1f} s; {time.perf_counter() - T_START:.1f} s "
+          f"since the script started")
+    return out
 
 
 def main() -> int:
@@ -4927,6 +5088,9 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
     gc.collect()
     torch.cuda.empty_cache()
     sharded_lm = sharded_lm_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(dev, card, flash_entry, trained["full"], sharded_lm)
     row_run = ordered["launches"].get("rows", 0)
     mttkrp_entry["launches_by_path"] = {
         "cp_als (phase 3)": mttkrp_entry["launches"], "service (phase 9)": served["launches"],
@@ -5003,20 +5167,22 @@ def _main_after_phase10(dev, card, mttkrp_entry, nell2, lex_fits, eager_fits, ta
                families["trained"]["train"][arch]["launches"]["flash"]
            for arch in ("zamba2-1.2b", "whisper-base", VLM_ARCH)},
         f"sharded train step, {SHARD_LM['arch']} {SHARD_LM['layers']} layers, {SHARD_RANKS} "
-        "gloo ranks (phase 19)": sharded_lm["launches"]}
+        "gloo ranks (phase 19)": sharded_lm["launches"],
+        f"prefill under the op counter, {ARCH} {DRY_LAYERS} layers (phase 20b)": dry["launches"]}
     flash_entry["phase17_shapes"] = families["flash_shapes"]
     flash_entry["sharded_lm"] = {k: v for k, v in sharded_lm.items() if k != "launches"}
     flash_entry["launches"] = sum(flash_entry["launches_by_path"].values())
     flash_entry["lse_max_abs_err"] = trained["lse"]["max_abs_err"]
     flash_entry["training"] = {k: trained[k] for k in ("lse", "grad", "moe", "reduced", "full")}
     flash_entry["decode"] = decoded
+    flash_entry["dryrun"] = {k: v for k, v in dry.items() if k != "launches"}
     mttkrp_entry["sharded"] = {k: sharded[k] for k in (
         "fit_gaps", "table2_s", "engine_s", "table2", "timing", "peak_gb")}
     mttkrp_entry["service"] = {k: served[k] for k in (
         "stats", "batch_ms", "profile_ms", "peak_gb", "stage_host_ms", "enqueue_ms", "stacked_ms",
         "stacked_plain_ms", "stacked_bound_ms")}
     total_s = time.perf_counter() - T_START
-    print(f"total {total_s:.1f} s")
+    print(f"phase 20 took {dry['seconds']:.1f} s; total {total_s:.1f} s (limit 1200 s)")
     kernels = [mttkrp_entry, tile_entry, flash_entry, *scan_entries(families),
                *bwd_entries(families["trained"])]
     print(json.dumps({"phase15": contracts}))

@@ -33,6 +33,18 @@ unsharded ``model_zoo.make_train_step``'s up to the order of summation:
   parameters, ``m`` and ``v``, in place: the state returned has the
   shardings it was given.
 
+**Its collectives in closed form.** ``gather_collectives`` and
+``step_collectives`` give the calls a step makes, as records for
+``perf.coll_stats`` (``{"kind", "result_bytes", "group", "axes"}``), from
+the shardings and a mesh's axis sizes alone (a ``MeshShape`` will do): one
+``all_gather`` per bucket of ``sharding.gather_tensors`` (the leaves that
+share their sharded axes and their dtype after the cast), its result the
+bucket's whole tensors, and one ``all_reduce`` of the float32 gradients and
+the loss over the data group.  The dry run prices a production cell with
+them; on a group, each call runs inside a ``torch.profiler`` label naming
+its kind, mesh axes and group size (``sharding.collective_label``), which
+``perf.coll_breakdown`` reads back from a trace.
+
 A non-finite loss raises ``FloatingPointError`` on every rank, after the
 sum and before any update.  Moments sharded otherwise than their parameter
 (``train_state_shardings(zero1=True)``) are refused: this step updates a
@@ -47,6 +59,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (
+    P,
+    collective_label,
     dtensor_slices,
     gather_tensors,
     placements,
@@ -62,9 +76,10 @@ from repro_torch.models.model_zoo import (
     sgd_update,
 )
 from repro_torch.optim.adamw import global_norm
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import param_tree, tree_leaves, tree_map
 
-__all__ = ["data_group_axes", "sharded_train_step"]
+__all__ = ["data_group_axes", "gather_collectives", "rank_train_step", "sharded_train_step",
+           "step_collectives"]
 
 
 def data_group_axes(batch_shardings) -> tuple[str, ...]:
@@ -125,67 +140,146 @@ def sharded_train_step(cfg, optimizer, mesh, state_shardings, batch_shardings, *
                                  "the moments of the same elements")
         checked.append(True)
 
-    def gather_weights(shards: list) -> list[torch.Tensor]:
-        cast = [DTensor.from_local(compute_weight(dt.to_local(), cfg), dt.device_mesh,
-                                   dt.placements, run_check=False, shape=dt.shape,
-                                   stride=dt.stride()) for dt in shards]
-        return [w.detach().requires_grad_() for w in gather_tensors(cast)]
+    def reduce(flat: torch.Tensor) -> None:
+        with torch.profiler.record_function(collective_label("all-reduce", data, d_size)):
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
 
     def train_step(state: dict, batch: dict):
         if not checked:
             check(state)
-        ptree = state["params"]
-        shards = tree_leaves(ptree)
-        weights = gather_weights(shards)
-        it = iter(weights)
-        tree = tree_map(lambda _: next(it), ptree)
-        dev = weights[0].device
-        batch = on_device(batch, dev)
-        rows = next(iter(batch.values())).shape[0]
-        if rows % (n * d_size):
-            raise ValueError(f"a batch of {rows} rows does not split into {n} microbatches over "
-                             f"a data group of {d_size}")
-        per_ub, per_rank = rows // n, rows // (n * d_size)
+        shards = tree_leaves(state["params"])
 
-        def select(i):
-            """The rank's rows of microbatch i, its loss scaled by its share of
-            the microbatch's valid labels."""
-            start = i * per_ub + d_idx * per_rank
-            mb = {k: v[start:start + per_rank] for k, v in batch.items()}
-            valid = (batch["labels"][i * per_ub:(i + 1) * per_ub] >= 0).sum().clamp_min(1)
-            return mb, (mb["labels"] >= 0).sum() / valid
+        def gather(cast: list) -> list[torch.Tensor]:
+            return gather_tensors([DTensor.from_local(c, dt.device_mesh, dt.placements,
+                                                      run_check=False, shape=dt.shape,
+                                                      stride=dt.stride())
+                                   for c, dt in zip(cast, shards)])
 
-        # the gradients' and the loss's means, summed over the data group in one buffer
-        flat = torch.zeros(sum(w.numel() for w in weights) + 1, dtype=torch.float32, device=dev)
-        acc, at = [], 0
-        for w in weights:
-            acc.append(flat[at:at + w.numel()].view(w.shape))
-            at += w.numel()
-        loss, _ = microbatch_grads(loss_fn, tree, batch, n, select=select, into=acc)
-        flat[-1] = loss
-        del tree, weights
-        if group is not None:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        loss = flat[-1].clone()
-        check_finite(loss)
-        it = iter(acc)
-        grads = tree_map(lambda _: next(it), ptree)
-
-        if optimizer is None:
-            sgd_update(state, [dt.to_local() for dt in shards],
-                       [g[dtensor_slices(dt, coord)] for dt, g in zip(shards, acc)])
-            return state, {"loss": loss}
-        if optimizer.compressor is not None:
-            grads, state = _compress(optimizer.compressor, grads, state)
-        gnorm = global_norm(grads)
-        local_grads = tree_map(lambda g, dt: g[dtensor_slices(dt, coord)], grads, ptree)
-        local_state = {"params": tree_map(_local, ptree), "m": tree_map(_local, state["m"]),
-                       "v": tree_map(_local, state["v"]), "step": _local(state["step"]),
-                       "lr": _local(state["lr"])}
-        _, metrics = optimizer.apply_gradients(local_state, local_grads, grad_norm=gnorm)
-        return state, dict(metrics, loss=loss)
+        local = {key: tree_map(_local, state[key]) for key in _LOCAL_KEYS if key in state}
+        metrics = rank_train_step(cfg, optimizer, loss_fn, state, local, batch, n=n,
+                                  d_size=d_size, d_idx=d_idx, gather=gather,
+                                  slices=[dtensor_slices(dt, coord) for dt in shards],
+                                  reduce=reduce if group is not None else None)
+        return state, metrics
 
     return train_step
+
+
+_LOCAL_KEYS = ("params", "m", "v", "step", "lr")
+
+
+def rank_train_step(cfg, optimizer, loss_fn, state: dict, local: dict, batch: dict, *, n: int,
+                    d_size: int, d_idx: int, gather, slices: list, reduce=None,
+                    indices=None) -> dict:
+    """One rank's ``sharded_train_step`` from its own tensors on: the step
+    runs it on a group, the dry run (``launch.dryrun``) on ``meta``, with
+    the gather, the sum and the rows as their arguments.  Returns the
+    metrics.
+
+    ``state`` is the step's state: its ``params`` give the tree's
+    structure, and the compressor's buffer is read and set there.
+    ``local`` holds the rank's own tensors of ``params`` (a tree), ``m``,
+    ``v``, ``step`` and ``lr``, which the update changes in place.
+    ``gather(cast)`` returns the whole weights, in ``tree_leaves``' order,
+    from the rank's shards cast by ``compute_weight``; ``slices[j]`` is the
+    rank's slice of leaf j's whole tensor; ``reduce(flat)`` sums the
+    float32 gradients and the loss over the data group in place (``None``:
+    a group of one).  ``batch`` is the global batch, of which the rank takes
+    row block ``d_idx`` of ``d_size`` in every microbatch; ``indices`` are
+    the microbatches run (``microbatch_grads``)."""
+    shards = tree_leaves(local["params"])
+    weights = [w.detach().requires_grad_()
+               for w in gather([compute_weight(s, cfg) for s in shards])]
+    ptree = state["params"]
+    it = iter(weights)
+    tree = tree_map(lambda _: next(it), ptree)
+    dev = weights[0].device
+    batch = on_device(batch, dev)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % (n * d_size):
+        raise ValueError(f"a batch of {rows} rows does not split into {n} microbatches over "
+                         f"a data group of {d_size}")
+    per_ub, per_rank = rows // n, rows // (n * d_size)
+
+    def select(i):
+        """The rank's rows of microbatch i, its loss scaled by its share of
+        the microbatch's valid labels."""
+        start = i * per_ub + d_idx * per_rank
+        mb = {k: v[start:start + per_rank] for k, v in batch.items()}
+        valid = (batch["labels"][i * per_ub:(i + 1) * per_ub] >= 0).sum().clamp_min(1)
+        return mb, (mb["labels"] >= 0).sum() / valid
+
+    # the gradients' and the loss's means, summed over the data group in one buffer
+    flat = torch.zeros(sum(w.numel() for w in weights) + 1, dtype=torch.float32, device=dev)
+    acc, at = [], 0
+    for w in weights:
+        acc.append(flat[at:at + w.numel()].view(w.shape))
+        at += w.numel()
+    loss, _ = microbatch_grads(loss_fn, tree, batch, n, select=select, into=acc,
+                               indices=indices)
+    flat[-1] = loss
+    del tree, weights
+    if reduce is not None:
+        reduce(flat)
+    loss = flat[-1].clone()
+    if loss.device.type != "meta":  # a meta tensor holds no value to check
+        check_finite(loss)
+
+    if optimizer is None:
+        sgd_update(state, shards, [g[sl] for g, sl in zip(acc, slices)])
+        return {"loss": loss}
+    it = iter(acc)
+    grads = tree_map(lambda _: next(it), ptree)
+    if optimizer.compressor is not None:
+        grads, state = _compress(optimizer.compressor, grads, state)
+    gnorm = global_norm(grads)
+    it = iter(slices)
+    local_grads = tree_map(lambda g: g[next(it)], grads)
+    _, metrics = optimizer.apply_gradients(local, local_grads, grad_norm=gnorm)
+    return dict(metrics, loss=loss)
+
+
+def gather_collectives(leaves, specs, mesh) -> list[dict]:
+    """The ``all_gather`` calls of ``sharding.gather_tensors`` over tensors of
+    these ``(shape, dtype)`` ``leaves`` placed by ``specs``: one call per
+    bucket of leaves that share their sharded mesh axes (in the mesh's
+    order) and dtype, in the order of each bucket's first leaf; its result
+    is the bucket's whole tensors.  Unsharded leaves are copied, not
+    gathered."""
+    sizes = axis_sizes(mesh)
+    buckets: dict[tuple, int] = {}
+    for (shape, dtype), spec in zip(leaves, specs):
+        used = set(P(*spec).axes())
+        axes = tuple(a for a in sizes.axis_names if a in used)
+        if not axes:
+            continue
+        key = (axes, dtype)
+        buckets[key] = buckets.get(key, 0) + math.prod(shape) * dtype.itemsize
+    return [{"kind": "all-gather", "result_bytes": float(nbytes), "axes": axes,
+             "group": math.prod(sizes.shape[a] for a in axes)}
+            for (axes, _), nbytes in buckets.items()]
+
+
+def step_collectives(cfg, params, param_specs, mesh, batch_shardings) -> list[dict]:
+    """The collectives one ``sharded_train_step`` call makes on every rank,
+    in closed form: the gather of the weights, cast as the step casts them
+    (``compute_weight``), and the ``all_reduce`` of their float32 gradients
+    and the loss over the data group (none on a group of one).  ``params``
+    is a model or its parameter tree (only shapes and dtypes are read:
+    ``meta`` tensors or the step's ``DTensor`` shards will do),
+    ``param_specs`` its specs."""
+    sizes = axis_sizes(mesh)
+    # compute_weight's cast: tensors of 2 or more dimensions to cfg.dtype
+    leaves = [(tuple(p.shape), cfg.dtype if p.dim() >= 2 else p.dtype)
+              for p in tree_leaves(param_tree(params))]
+    records = gather_collectives(leaves, spec_leaves(param_specs), sizes)
+    data = data_group_axes(batch_shardings)
+    d_size = math.prod(sizes.shape[a] for a in data)
+    if d_size > 1:
+        numel = sum(math.prod(shape) for shape, _ in leaves) + 1
+        records.append({"kind": "all-reduce", "result_bytes": float(numel * 4), "axes": data,
+                        "group": d_size})
+    return records
 
 
 def _compress(compressor, grads, state: dict):

@@ -60,6 +60,7 @@ __all__ = [
     "P",
     "PartitionSpec",
     "batch_shardings",
+    "collective_label",
     "decode_state_shardings",
     "dtensor_slices",
     "gather_state",
@@ -485,6 +486,13 @@ def dtensor_slices(dt, coordinate) -> tuple[slice, ...]:
     return local_slices(P(*entries), dt.shape, mesh, coordinate)
 
 
+def collective_label(kind: str, axes, group: int) -> str:
+    """The ``torch.profiler`` label around one collective call: its kind (JAX's
+    name), the mesh axes of its group and the group's size, which gloo's own
+    trace events do not carry (``perf.coll_breakdown`` reads it back)."""
+    return f"repro_torch.{kind}[{','.join(axes)}|{int(group)}]"
+
+
 def gather_tensors(dts: list) -> list[torch.Tensor]:
     """Full tensors of ``dts``, on every rank: one ``all_gather`` per group of
     leaves that share the ranks holding their pieces and a dtype."""
@@ -506,8 +514,10 @@ def gather_tensors(dts: list) -> list[torch.Tensor]:
             continue
         flat = torch.cat([loc.reshape(-1) for loc in locals_])
         group = axis_group(mesh, axes)
-        pieces = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(pieces, flat, group=group)
+        n = dist.get_world_size(group)
+        pieces = [torch.empty_like(flat) for _ in range(n)]
+        with torch.profiler.record_function(collective_label("all-gather", axes, n)):
+            dist.all_gather(pieces, flat, group=group)
         fulls = [torch.empty(dts[j].shape, dtype=dtype, device=flat.device) for j in idx]
         for g, piece in enumerate(pieces):
             coord = rank_coordinate(mesh, dist.get_global_rank(group, g))

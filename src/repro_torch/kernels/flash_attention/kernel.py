@@ -27,6 +27,17 @@ caller asks for it (``return_lse``), for the recomputing backward of
 ``flash_attention_cuda.launches`` counts the kernel launches of this
 process, and ``flash_attention_cuda.launches_by_variant`` counts them per
 variant.
+
+**Custom ops.** The launch runs inside two ``torch.library.custom_op``s,
+``repro_torch::flash_attention_fwd`` and ``repro_torch::flash_attention_fwd_lse``
+(the same kernel storing each row's log-sum-exp too).  Each has the launch
+as its CUDA implementation, a fake implementation that gives the outputs'
+shapes only (``flash_attention_cuda`` takes ``meta`` tensors too and
+reaches it with them, checks and all, launching nothing), and a
+flop formula, ``attention_flops``: the two products' ``4 D`` flops for
+each (query, key) pair the mask leaves.  So ``torch.utils.flop_counter`` and
+``perf.op_cost`` read the kernel as one op, on meta tensors and on the card
+alike, where a launch through ctypes alone would be invisible to them.
 """
 
 from __future__ import annotations
@@ -34,11 +45,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
-__all__ = ["HEAD_DIMS", "QUERY_TILE", "VARIANTS", "WGMMA_HEAD_DIMS", "check_inputs", "cta_rows",
-           "flash_attention_cuda", "reset_launch_counts", "variant_for"]
+__all__ = ["HEAD_DIMS", "QUERY_TILE", "VARIANTS", "WGMMA_HEAD_DIMS", "attention_flops",
+           "check_inputs", "cta_rows", "flash_attention_cuda", "reset_launch_counts",
+           "variant_for"]
 
 HEAD_DIMS = (32, 64, 128)  # the head dims some kernel is built for
 WGMMA_HEAD_DIMS = (64, 128)  # flash_attention_sm90.cu's instantiations
@@ -175,9 +188,9 @@ def flash_attention_cuda(
     refused; the differentiable path is ``models.attention.blocked_attention``.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(
-                f"flash_attention_cuda needs CUDA tensors, got {name} on {t.device}; "
+                f"flash_attention_cuda needs CUDA (or meta) tensors, got {name} on {t.device}; "
                 "CPU tensors take the plain version (ops.flash_attention)"
             )
         if t.device != q.device:
@@ -205,13 +218,65 @@ def flash_attention_cuda(
         raise NotImplementedError(
             "flash_attention_cuda has no backward: differentiate through "
             "repro_torch.models.attention.blocked_attention")
+    return _call_op(q, k, v, causal, variant, return_lse)
+
+
+def _call_op(q, k, v, causal: bool, variant: str, return_lse: bool):
+    if return_lse:
+        return tuple(torch.ops.repro_torch.flash_attention_fwd_lse(q, k, v, causal, variant))
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, variant)
+
+
+def _run(q, k, v, causal: bool, variant: str, return_lse: bool):
+    """Allocate the outputs and launch (the custom ops' CUDA implementation)."""
+    b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() != 0:
         _launch(q, k, v, out, causal=causal, variant=variant, lse=lse)
         flash_attention_cuda.launches += 1
         flash_attention_cuda.launches_by_variant[variant] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(), device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  variant: str) -> torch.Tensor:
+    return _run(q, k, v, causal, variant, False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd_lse", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                      variant: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return _run(q, k, v, causal, variant, True)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, variant):
+    return q.new_empty(q.shape)
+
+
+@_flash_fwd_lse_op.register_fake
+def _(q, k, v, causal, variant):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def attention_flops(b: int, s: int, h: int, d: int, causal: bool, s_kv: int | None = None) -> int:
+    """Two products of 2 D flops for each (query, key) pair the inputs need:
+    for causal attention only the triangle, S(S+1)/2 pairs per (b, h); a
+    non-causal call every pair of its S x S_kv."""
+    s_kv = s if s_kv is None else s_kv
+    pairs = s * (s + 1) // 2 if causal else s * s_kv
+    return 4 * d * pairs * b * h
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention_fwd,
+                        torch.ops.repro_torch.flash_attention_fwd_lse])
+def _flash_flops(q_shape, k_shape, v_shape, causal, variant, *args, out_shape=None, **kwargs):
+    b, s, h, d = q_shape
+    return attention_flops(b, s, h, d, causal, k_shape[1])
 
 
 def reset_launch_counts() -> None:

@@ -7,8 +7,10 @@ q's dtype, with ``return_lse`` also the float32 ``(B, H, S)`` row
 log-sum-exp.  CUDA tensors launch a hand-written kernel (``kernel.py``),
 which reads the layout through strides, indexes KV heads for grouped-query
 attention and masks the ragged sequence tail itself; it raises on anything
-it does not take.  CPU tensors run the plain version (``ref.py``) after the
-JAX wrapper's GQA repeat and head-major reshape.
+it does not take.  ``meta`` tensors take the same wrapper to the kernel's
+custom op, whose fake implementation gives the shapes and whose flop
+formula the dry run reads.  CPU tensors run the plain version (``ref.py``)
+after the JAX wrapper's GQA repeat and head-major reshape.
 
 The TPU wrapper's ``block_q``, ``block_kv`` and ``interpret`` are not part
 of this API: each CUDA kernel picks its own tiles (128 x 128 for bf16 at
@@ -58,9 +60,9 @@ def flash_attention(
     """Attention forward; ``(B, S, H, D)`` x ``(B, S_kv, KV, D)`` -> ``(B, S, H, D)``,
     and with ``return_lse`` the float32 ``(B, H, S)`` row log-sum-exp of the
     scaled scores (natural log), which the recomputing backward reads."""
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
     if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
+        raise ValueError(f"flash_attention runs on 'cuda', 'meta' or 'cpu' tensors, got {q.device}")
     check_inputs(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal, return_lse=return_lse)

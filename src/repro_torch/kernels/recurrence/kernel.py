@@ -31,6 +31,18 @@ where the autograd functions pair each forward with its backward.
 
 ``<wrapper>.launches`` counts each kernel's launches in this process;
 ``reset_launch_counts`` sets all four to 0.
+
+**Custom ops.** Each launch runs inside a ``torch.library.custom_op``
+(``repro_torch::wkv6_scan``, ``ssd_scan``, ``wkv6_scan_bwd``,
+``ssd_scan_bwd``): the wrapper checks its inputs and calls the op, whose
+CUDA implementation allocates the outputs and launches.  Each op also has
+a fake implementation that gives the outputs' shapes only (the wrappers
+take ``meta`` tensors too and reach it with them, checks and all, where
+the plain loops would take minutes at S = 32768), and a flop formula that
+``torch.utils.flop_counter`` and ``perf.op_cost`` read: ``scan_flops``, the
+forward's 3xTF32 chunk products, and ``scan_bwd_flops``, the backward
+function's products and elementwise work, as ``chip_smoke.py`` counts them
+for the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -38,11 +50,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
 __all__ = ["HEAD_DIM", "SSD_STATE", "bwd_grid", "check_ssd_inputs", "check_wkv_inputs",
-           "reset_launch_counts",
+           "reset_launch_counts", "scan_bwd_flops", "scan_flops",
            "ssd_scan_bwd_cuda", "ssd_scan_cuda", "wkv6_scan_bwd_cuda", "wkv6_scan_cuda"]
 
 HEAD_DIM = 64  # rwkv's WKV head dim; mamba's head dim
@@ -85,9 +98,9 @@ def check_ssd_inputs(decay, dtx, bm, cm) -> None:
 def _check_cuda(kernel: str, tensors: dict) -> torch.device:
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{kernel} needs CUDA tensors, got {name} on {t.device}; CPU "
-                             "tensors take the plain version (kernels.recurrence.ops)")
+        if t.device.type not in ("cuda", "meta"):
+            raise ValueError(f"{kernel} needs CUDA (or meta) tensors, got {name} on {t.device}; "
+                             "CPU tensors take the plain version (kernels.recurrence.ops)")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the others on {dev}")
         if t.dim() and t.stride(-1) != 1 and t.shape[-1] > 1:
@@ -95,13 +108,18 @@ def _check_cuda(kernel: str, tensors: dict) -> torch.device:
     return dev
 
 
-def _check_dy(dy: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """dy must be float32 of y's shape (B, S, H, 64); returned contiguous and
-    on 16 bytes (the kernels bring its rows by bulk copies)."""
+def _check_dy_shape(dy: torch.Tensor, like: torch.Tensor) -> None:
+    """dy must be float32 of y's shape (B, S, H, 64)."""
     if tuple(dy.shape) != tuple(like.shape[:3]) + (HEAD_DIM,):
         raise ValueError(f"dy must be {tuple(like.shape[:3]) + (HEAD_DIM,)}; got {tuple(dy.shape)}")
     if dy.dtype != torch.float32:
         raise TypeError(f"dy is {dy.dtype}; the scan takes float32")
+
+
+def _check_dy(dy: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """dy checked, returned contiguous and on 16 bytes (the kernels bring its
+    rows by bulk copies)."""
+    _check_dy_shape(dy, like)
     dy = dy.contiguous()
     return dy if dy.data_ptr() % 16 == 0 else dy.clone()
 
@@ -152,11 +170,22 @@ def wkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
     """Launch the WKV-6 scan; returns y (B, S, H, 64) float32, contiguous.
     r, k, v, w (B, S, H, 64) and u (H, 64), float32 on one CUDA device; the
     state starts at zero.  Runs on the current stream, not synchronised."""
-    dev = _check_cuda("wkv6_scan_cuda", dict(r=r, k=k, v=v, w=w, u=u))
+    _check_cuda("wkv6_scan_cuda", dict(r=r, k=k, v=v, w=w, u=u))
+    _check_wkv(r, k, v, w, u)
+    return torch.ops.repro_torch.wkv6_scan(r, k, v, w, u)
+
+
+def _check_wkv(r, k, v, w, u) -> None:
     check_wkv_inputs(r, k, v, w, u)
+    if r.shape[0] > MAX_BATCH:
+        raise ValueError(f"batch {r.shape[0]} exceeds the kernel's grid ({MAX_BATCH})")
+
+
+@torch.library.custom_op("repro_torch::wkv6_scan", mutates_args=(), device_types="cuda")
+def _wkv6_scan_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor) -> torch.Tensor:
+    dev = r.device
     b, s, h, _ = r.shape
-    if b > MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
     y = torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
@@ -179,13 +208,24 @@ def ssd_scan_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
     contiguous.  decay (B, S, H), dtx (B, S, H, 64), bm and cm (B, S, 64),
     float32 on one CUDA device; the state starts at zero.  A state size N
     other than 64 raises ``ValueError``.  Runs on the current stream."""
-    dev = _check_cuda("ssd_scan_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm))
+    _check_cuda("ssd_scan_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm))
+    _check_ssd(decay, dtx, bm, cm)
+    return torch.ops.repro_torch.ssd_scan(decay, dtx, bm, cm)
+
+
+def _check_ssd(decay, dtx, bm, cm) -> None:
     check_ssd_inputs(decay, dtx, bm, cm)
-    b, s, h, _ = dtx.shape
     if bm.shape[-1] != SSD_STATE:
         raise ValueError(f"state size {bm.shape[-1]}; the SSD kernel is built for {SSD_STATE}")
-    if b > MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
+    if dtx.shape[0] > MAX_BATCH:
+        raise ValueError(f"batch {dtx.shape[0]} exceeds the kernel's grid ({MAX_BATCH})")
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(), device_types="cuda")
+def _ssd_scan_op(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
+                 cm: torch.Tensor) -> torch.Tensor:
+    dev = dtx.device
+    b, s, h, _ = dtx.shape
     y = torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
@@ -216,12 +256,20 @@ def wkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: tor
     B * H * ceil(S / 32) * 16 KB and the two halves' shares of dv for the
     launch; dv is their sum, du the sum of each (b, h)'s share over the
     batch.  Runs on the current stream, not synchronised."""
-    dev = _check_cuda("wkv6_scan_bwd_cuda", dict(r=r, k=k, v=v, w=w, u=u, dy=dy))
-    check_wkv_inputs(r, k, v, w, u)
+    _check_cuda("wkv6_scan_bwd_cuda", dict(r=r, k=k, v=v, w=w, u=u, dy=dy))
+    _check_wkv(r, k, v, w, u)
+    _check_dy_shape(dy, r)
+    return tuple(torch.ops.repro_torch.wkv6_scan_bwd(r, k, v, w, u, dy))
+
+
+@torch.library.custom_op("repro_torch::wkv6_scan_bwd", mutates_args=(), device_types="cuda")
+def _wkv6_scan_bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                      u: torch.Tensor, dy: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    dev = r.device
     dy = _check_dy(dy, r)
     b, s, h, _ = r.shape
-    if b > MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
     dr, dk, dlw = (torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
                    for _ in range(3))
     dv_part = torch.empty((2, b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
@@ -252,14 +300,19 @@ def ssd_scan_bwd_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
     (their sum over H is it).  Inputs as ``ssd_scan_cuda`` takes them, dy
     float32.  dlogdec and ddtx are the sums of the two halves' shares.  Runs
     on the current stream, not synchronised."""
-    dev = _check_cuda("ssd_scan_bwd_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm, dy=dy))
-    check_ssd_inputs(decay, dtx, bm, cm)
+    _check_cuda("ssd_scan_bwd_cuda", dict(decay=decay, dtx=dtx, bm=bm, cm=cm, dy=dy))
+    _check_ssd(decay, dtx, bm, cm)
+    _check_dy_shape(dy, dtx)
+    return tuple(torch.ops.repro_torch.ssd_scan_bwd(decay, dtx, bm, cm, dy))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=(), device_types="cuda")
+def _ssd_scan_bwd_op(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                     dy: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    dev = dtx.device
     dy = _check_dy(dy, dtx)
     b, s, h, _ = dtx.shape
-    if bm.shape[-1] != SSD_STATE:
-        raise ValueError(f"state size {bm.shape[-1]}; the SSD kernel is built for {SSD_STATE}")
-    if b > MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds the kernel's grid ({MAX_BATCH})")
     dlog_part = torch.empty((2, b, s, h), dtype=torch.float32, device=dev)
     dx_part = torch.empty((2, b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
     db_h, dc_h = (torch.empty((b, s, h, HEAD_DIM), dtype=torch.float32, device=dev)
@@ -278,6 +331,92 @@ def ssd_scan_bwd_cuda(decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor,
     _raise_on(lib.recurrence_bwd_error_string, err, "ssd_scan_bwd")
     ssd_scan_bwd_cuda.launches += 1
     return dlog_part[0] + dlog_part[1], dx_part[0] + dx_part[1], db_h, dc_h
+
+
+def _y_like(x: torch.Tensor) -> torch.Tensor:
+    b, s, h = x.shape[:3]
+    return x.new_empty((b, s, h, HEAD_DIM), dtype=torch.float32)
+
+
+@_wkv6_scan_op.register_fake
+def _(r, k, v, w, u):
+    return _y_like(r)
+
+
+@_ssd_scan_op.register_fake
+def _(decay, dtx, bm, cm):
+    return _y_like(dtx)
+
+
+@_wkv6_scan_bwd_op.register_fake
+def _(r, k, v, w, u, dy):
+    return _y_like(r), _y_like(r), _y_like(r), _y_like(r), u.new_empty(u.shape)
+
+
+@_ssd_scan_bwd_op.register_fake
+def _(decay, dtx, bm, cm, dy):
+    return decay.new_empty(decay.shape), _y_like(dtx), _y_like(dtx), _y_like(dtx)
+
+
+# The forward kernels' tensor-core work: mma.sync m16n8k8 (2 x 16 x 8 x 8 TF32
+# flops) a (b, h) and 32-step chunk, the 3xTF32 split's three products each.
+# WKV-6: (r P) S_start 128, A's off-diagonal block 16, A V over A's three
+# 16 x 16 lower blocks 48, (k Q)^T V 128: 320 x 3.  SSD: C h^T 128, C B^T's
+# lower blocks 48, (Ls C B^T) X 48, (suf B)^T X 128: 352 x 3.
+MMA_PER_CHUNK = {"wkv6": 960, "ssd": 1056}
+MMA_TF32_FLOPS = 2 * 16 * 8 * 8
+
+
+def scan_flops(kind: str, b: int, s: int, h: int) -> int:
+    """The forward kernel's 3xTF32 chunk products, each counted three times."""
+    return MMA_PER_CHUNK[kind] * MMA_TF32_FLOPS * b * h * -(-s // CHUNK)
+
+
+def scan_bwd_flops(kind: str, b: int, s: int, h: int) -> tuple[int, int]:
+    """The backward function's work on these shapes, ``(products,
+    elementwise)``, per (b, h) and 32-step chunk of L steps in the chunked
+    form with its O(L^2) sums; products counted three times, a 3xTF32
+    product's.  Products: the five state products (2 L 64^2 each) and the
+    pair products (WKV-6: D, A and dv's A^T dy over the pairs with their
+    diagonal, dr's and dk's over the pairs below it; the SSD: E, C B^T, dc,
+    db and dx over the pairs with their diagonal).  Elementwise: the decays'
+    gradient, a product and two prefix sums a pair and column (WKV-6; a pair
+    for the SSD) and its start- and end-state parts."""
+    n, d = CHUNK, HEAD_DIM
+    pairs, incl = n * (n - 1) // 2, n * (n + 1) // 2
+    state = 5 * 2 * n * d * d
+    if kind == "wkv6":
+        products = state + 3 * 2 * incl * d + 2 * 2 * pairs * d
+        elementwise = 3 * pairs * d + 4 * n * d + 2 * d * d
+    else:
+        products = state + 5 * 2 * incl * d
+        elementwise = 3 * incl + 4 * n * d + 2 * d * d
+    per = b * h * -(-s // CHUNK)
+    return 3 * products * per, elementwise * per
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_scan)
+def _wkv6_flops(r_shape, *args, out_shape=None, **kwargs):
+    b, s, h, _ = r_shape
+    return scan_flops("wkv6", b, s, h)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_flops(decay_shape, dtx_shape, *args, out_shape=None, **kwargs):
+    b, s, h, _ = dtx_shape
+    return scan_flops("ssd", b, s, h)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_scan_bwd)
+def _wkv6_bwd_flops(r_shape, *args, out_shape=None, **kwargs):
+    b, s, h, _ = r_shape
+    return sum(scan_bwd_flops("wkv6", b, s, h))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _ssd_bwd_flops(decay_shape, dtx_shape, *args, out_shape=None, **kwargs):
+    b, s, h, _ = dtx_shape
+    return sum(scan_bwd_flops("ssd", b, s, h))
 
 
 def bwd_grid(kind: str, b: int, h: int) -> dict:

@@ -10,9 +10,11 @@ decay (a decay of exactly 0 gives a gradient of 0, as JAX's chain rule
 through ``exp`` does).  CUDA tensors launch the hand-written kernels, which
 raise on anything they do not take: the forward kernel alone, or, where a
 gradient is wanted, an ``autograd.Function`` pairing it with its backward
-kernel.  CPU tensors run the plain per-step loop (``ref.py``), which
-autograd differentiates.  JAX's ``scan_chunk`` changes nothing in the
-forward values and is not an argument here.
+kernel.  ``meta`` tensors take the same route to the kernels' custom ops,
+whose fake implementations give the shapes and whose flop formulas the dry
+run reads (``kernel.py``).  CPU tensors run the plain per-step loop
+(``ref.py``), which autograd differentiates.  JAX's ``scan_chunk`` changes
+nothing in the forward values and is not an argument here.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ __all__ = ["ssd_scan_logdec", "wkv6_scan_logw"]
 
 
 def _device_type(t: torch.Tensor, fn: str) -> str:
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{fn} runs on 'cuda' or 'cpu' tensors, got {t.device}")
+    if t.device.type not in ("cuda", "meta", "cpu"):
+        raise ValueError(f"{fn} runs on 'cuda', 'meta' or 'cpu' tensors, got {t.device}")
     return t.device.type
 
 
@@ -53,7 +55,7 @@ class _Wkv6Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return wkv6_scan_bwd_cuda(*ctx.saved_tensors, dy.float())
+        return wkv6_scan_bwd_cuda(*ctx.saved_tensors, dy.float().contiguous())
 
 
 class _SsdScan(torch.autograd.Function):
@@ -68,7 +70,8 @@ class _SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        dlog, ddtx, dbm_h, dcm_h = ssd_scan_bwd_cuda(*ctx.saved_tensors, dy.float())
+        dlog, ddtx, dbm_h, dcm_h = ssd_scan_bwd_cuda(*ctx.saved_tensors,
+                                                     dy.float().contiguous())
         return dlog, ddtx, dbm_h.sum(2), dcm_h.sum(2)
 
 
@@ -76,7 +79,8 @@ def wkv6_scan_logw(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: tor
                    u: torch.Tensor) -> torch.Tensor:
     """The WKV-6 recurrence from a zero state with w = exp(log_w): y (B, S,
     H, 64) float32, differentiable in r, k, v, log_w and u."""
-    if _device_type(r, "wkv6_scan_logw") == "cuda":
+    dev = _device_type(r, "wkv6_scan_logw")
+    if dev != "cpu":
         if _needs_grad(r, k, v, log_w, u):
             return _Wkv6Scan.apply(r, k, v, log_w, u)
         return wkv6_scan_cuda(r, k, v, torch.exp(log_w), u)
@@ -89,7 +93,8 @@ def ssd_scan_logdec(log_decay: torch.Tensor, dtx: torch.Tensor, bm: torch.Tensor
                     cm: torch.Tensor) -> torch.Tensor:
     """The Mamba2 state recurrence from a zero state with decay =
     exp(log_decay): y (B, S, H, 64) float32, differentiable in every input."""
-    if _device_type(dtx, "ssd_scan_logdec") == "cuda":
+    dev = _device_type(dtx, "ssd_scan_logdec")
+    if dev != "cpu":
         if _needs_grad(log_decay, dtx, bm, cm):
             return _SsdScan.apply(log_decay, dtx, bm, cm)
         return ssd_scan_cuda(torch.exp(log_decay), dtx, bm, cm)

@@ -56,8 +56,18 @@ def grad_fence_bf16(x: torch.Tensor) -> torch.Tensor:
     return _GradFenceBf16.apply(x)
 
 
+class ShapesOnly:
+    """Stands for a generator on ``meta``, where ``torch.Generator`` cannot
+    live: ``normal`` then gives the shape and dtype without a draw."""
+
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
-    """``N(0, 1) * scale`` drawn in float32 on the generator's device, then cast."""
+    """``N(0, 1) * scale`` drawn in float32 on the generator's device, then
+    cast; on ``meta`` (``ShapesOnly``) the shape alone."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
 
 

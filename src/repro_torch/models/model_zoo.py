@@ -21,6 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     Transformer,
+    _state_device,
     cross_entropy_loss,
     decode_step,
     forward,
@@ -58,7 +59,8 @@ def compute_weight(p: torch.Tensor, cfg: ModelConfig, cast: bool = True) -> torc
     return p.to(cfg.dtype) if cast and p.dim() >= 2 else p
 
 
-def microbatch_grads(loss_fn, tree: dict, batch: dict, n: int, *, select=None, into=None):
+def microbatch_grads(loss_fn, tree: dict, batch: dict, n: int, *, select=None, into=None,
+                     indices=None):
     """``(loss, grads)`` of ``loss_fn`` against ``tree``'s leaves (which
     require grad), as the mean over ``n`` microbatches.
 
@@ -67,7 +69,9 @@ def microbatch_grads(loss_fn, tree: dict, batch: dict, n: int, *, select=None, i
     first axis into (n, B/n) rows, factor 1.  Float32 gradients are summed
     into ``into`` (zeroed buffers, one per leaf) or new buffers, then
     divided by ``n``; with ``n`` 1, no ``select`` and no ``into`` they are
-    autograd's, in the leaves' types, as in JAX."""
+    autograd's, in the leaves' types, as in JAX.  ``indices`` are the
+    microbatches the loop runs (default all ``n``): the dry run runs one,
+    counted ``n`` times (``launch.dryrun``)."""
     leaves = tree_leaves(tree)
     if n == 1 and select is None and into is None:
         loss = loss_fn(tree, batch)
@@ -84,7 +88,7 @@ def microbatch_grads(loss_fn, tree: dict, batch: dict, n: int, *, select=None, i
     acc = into if into is not None else [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                                          for p in leaves]
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(n):
+    for i in range(n) if indices is None else indices:
         mb, scale = select(i)
         loss = loss_fn(tree, mb)
         if scale is not None:
@@ -167,10 +171,11 @@ def make_prefill_fn(cfg: ModelConfig, *, device="cuda"):
     ``batch`` as ``forward`` takes it: ``tokens``, with ``frames`` for the
     encoder-decoder family and optionally ``prefix_embeds`` for the vision
     frontend.  Runs ``forward`` under ``torch.inference_mode`` on ``device`` (default
-    the GPU; raises without one) and returns a copy of the last position's
-    logits, so the full ``(B, S, padded_vocab)`` logits are freed on return.
+    the GPU; raises without one; ``"meta"`` runs it on shapes, for the dry
+    run) and returns a copy of the last position's logits, so the full
+    ``(B, S, padded_vocab)`` logits are freed on return.
     """
-    dev = resolve_device(device)
+    dev = _state_device(device)
 
     def prefill(model: Transformer, batch: dict) -> torch.Tensor:
         if model.embed.device != dev:
@@ -184,8 +189,9 @@ def make_prefill_fn(cfg: ModelConfig, *, device="cuda"):
 def make_decode_fn(cfg: ModelConfig, *, device="cuda"):
     """``serve_step(model, tokens, state) -> (logits (B, padded_vocab), state)``:
     ``decode_step`` under ``torch.inference_mode`` on ``device`` (default
-    the GPU; raises without one).  The state is updated in place."""
-    dev = resolve_device(device)
+    the GPU; raises without one; ``"meta"`` runs it on shapes).  The state
+    is updated in place."""
+    dev = _state_device(device)
 
     def serve_step(model: Transformer, tokens, state: dict):
         if model.embed.device != dev:

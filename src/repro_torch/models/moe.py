@@ -57,6 +57,14 @@ def _groups(cfg, s: int) -> int:
     return tg if s % tg == 0 else s
 
 
+def _one_hot(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """``F.one_hot(idx, e)`` as one comparison: ``F.one_hot``'s own ops
+    differ by device (a range check read back on the CPU, a scatter on the
+    card, a comparison on ``meta``), this one is the same everywhere, so
+    the dry run counts the ops the card runs."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)).long()
+
+
 def dispatch(params, cfg, x: torch.Tensor):
     """Route ``x`` (G, T, d).  Returns ``(disp, comb, gates, top_idx)``:
     the one-hot dispatch (G, T, E, C) in x's dtype, the combine weights of
@@ -72,7 +80,7 @@ def dispatch(params, cfg, x: torch.Tensor):
 
     # Slot of each (token, choice) in its expert's group buffer: the number of
     # earlier (token, choice) pairs, in row-major order, routed to that expert.
-    onehot = F.one_hot(idx, e)  # (G, T, k, E)
+    onehot = _one_hot(idx, e)  # (G, T, k, E)
     flat = onehot.reshape(g, tg * k, e)
     pos = ((flat.cumsum(1) - flat).reshape(g, tg, k, e) * onehot).sum(-1)  # (G, T, k)
     keep = pos < capacity  # overflow dropped (GShard)
@@ -117,7 +125,7 @@ def moe_layer(params, cfg, x: torch.Tensor, *, return_aux: bool = False):
 
 def router_load_balancing_loss(gates: torch.Tensor, top_idx: torch.Tensor, e: int):
     """Switch-style auxiliary loss ``E * sum_e f_e p_e``.  gates (T, E), top_idx (T, k)."""
-    me = F.one_hot(top_idx[:, 0], e).float().mean(0)  # fraction routed
+    me = _one_hot(top_idx[:, 0], e).float().mean(0)  # fraction routed
     pe = gates.float().mean(0)
     return e * torch.sum(me * pe)
 

@@ -53,6 +53,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     RMSNorm,
+    ShapesOnly,
     SwiGLU,
     grad_fence_bf16,
     init_embedding,
@@ -207,10 +208,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Transformer
     """Random weights from ``torch.Generator(device).manual_seed(seed)``.
 
     The draws are not JAX's; to compute from the JAX package's weights use
-    ``repro_torch.convert.lm_params_from_numpy``.
+    ``repro_torch.convert.lm_params_from_numpy``.  ``device="meta"`` gives
+    the weights' shapes and dtypes without storage or draws (JAX's
+    ``eval_shape`` of its ``init_model``).
     """
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = _state_device(device)
+    gen = ShapesOnly() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     pd = cfg.param_dtype
     params = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype=pd),
@@ -408,7 +411,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels, *, z_loss: float = 1e-4) ->
 
 def _state_device(device) -> torch.device:
     """``resolve_device``, plus ``"meta"``: shapes and dtypes without storage
-    (``model_zoo.input_specs``)."""
+    (``model_zoo.input_specs``, ``init_model``, the dry run's steps)."""
     if str(device) == "meta":
         return torch.device("meta")
     return resolve_device(device)
