@@ -13,6 +13,10 @@
     ``DTensor``s (``shard_state``, ``gather_state``);
   * ``repro_torch.distributed.sharded_step`` — the sharded train step, the
     port's counterpart of JAX's pjit step;
+  * ``repro_torch.distributed.sharded_serve`` — the sharded prefill and
+    decode, the port's counterparts of JAX's pjit prefill and decode;
+  * ``repro_torch.distributed.tensor_parallel`` — compute over the model
+    axis: Megatron's operators, the vocabulary-parallel lookup and loss;
   * ``repro_torch.distributed.decode`` — the decode with the KV cache
     sharded on sequence, combined by the log-sum-exp;
   * ``repro_torch.distributed.collectives`` — ``compressed_psum`` and
@@ -22,7 +26,6 @@ Meshes are ``repro_torch.launch.mesh``'s.
 """
 
 from repro_torch.distributed.collectives import compressed_psum, ring_allgather_matmul
-from repro_torch.distributed.decode import sharded_decode_attention
 from repro_torch.distributed.layout import get_layout, layout_scope, pick_layout, set_layout
 from repro_torch.distributed.mttkrp_dist import (
     SCHEMES,
@@ -32,7 +35,6 @@ from repro_torch.distributed.mttkrp_dist import (
     mttkrp_sharded_apply,
     partition_by_output_rows,
 )
-from repro_torch.distributed.sharded_step import sharded_train_step
 from repro_torch.distributed.sharding import (
     P,
     PartitionSpec,
@@ -45,6 +47,21 @@ from repro_torch.distributed.sharding import (
     train_state_shardings,
 )
 from repro_torch.distributed.spawn import backend_for, rank_device, spawn
+
+# The step modules import the models, and the models import
+# ``tensor_parallel`` from this package: those two load on first use.
+_LAZY = {"sharded_decode_attention": "repro_torch.distributed.decode",
+         "sharded_train_step": "repro_torch.distributed.sharded_step"}
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(_LAZY[name]), name)
+    globals()[name] = value
+    return value
 
 __all__ = [
     "ShardedModeSetup",

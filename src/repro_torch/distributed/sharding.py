@@ -62,7 +62,6 @@ __all__ = [
     "batch_shardings",
     "collective_label",
     "decode_state_shardings",
-    "dtensor_slices",
     "gather_state",
     "gather_tensors",
     "is_sharded",
@@ -473,19 +472,6 @@ def shard_state(tree, shardings, mesh):
     return _zip_specs(tree, shardings, put)
 
 
-def dtensor_slices(dt, coordinate) -> tuple[slice, ...]:
-    """The slice of ``dt``'s global tensor held at mesh ``coordinate``."""
-    from torch.distributed.tensor import Shard
-
-    mesh = dt.device_mesh
-    names = tuple(mesh.mesh_dim_names)
-    entries: list[list[str]] = [[] for _ in dt.shape]
-    for k, p in enumerate(dt.placements):
-        if isinstance(p, Shard):
-            entries[p.dim].append(names[k])
-    return local_slices(P(*entries), dt.shape, mesh, coordinate)
-
-
 def collective_label(kind: str, axes, group: int) -> str:
     """The ``torch.profiler`` label around one collective call: its kind (JAX's
     name), the mesh axes of its group and the group's size, which gloo's own
@@ -493,37 +479,62 @@ def collective_label(kind: str, axes, group: int) -> str:
     return f"repro_torch.{kind}[{','.join(axes)}|{int(group)}]"
 
 
-def gather_tensors(dts: list) -> list[torch.Tensor]:
-    """Full tensors of ``dts``, on every rank: one ``all_gather`` per group of
-    leaves that share the ranks holding their pieces and a dtype."""
+def _dtensor_spec(dt, keep=None) -> PartitionSpec:
+    """``dt``'s placements as a spec, keeping only the axes in ``keep``."""
     from torch.distributed.tensor import Shard
 
+    names = tuple(dt.device_mesh.mesh_dim_names)
+    entries: list[list[str]] = [[] for _ in dt.shape]
+    for k, p in enumerate(dt.placements):
+        if isinstance(p, Shard) and (keep is None or names[k] in keep):
+            entries[p.dim].append(names[k])
+    return P(*entries)
+
+
+def gather_tensors(dts: list, axes=None) -> list[torch.Tensor]:
+    """Tensors of ``dts`` gathered over the mesh ``axes`` (default every
+    axis: the full tensors), on every rank: one ``all_gather`` per group of
+    leaves that share the gathered axes and a dtype.  A leaf stays sharded
+    on its other axes (the sharded step gathers over the data axes and
+    keeps the model axis's shards); an axis gathered and one kept may not
+    shard one dimension."""
     buckets: dict[tuple, list[int]] = {}
     for j, dt in enumerate(dts):
-        mesh = dt.device_mesh
-        names = tuple(mesh.mesh_dim_names)
-        axes = tuple(names[k] for k, p in enumerate(dt.placements) if isinstance(p, Shard))
-        buckets.setdefault((id(mesh), axes, dt.dtype), []).append(j)
+        names = tuple(dt.device_mesh.mesh_dim_names)
+        used = set(_dtensor_spec(dt).axes())
+        gathered = tuple(a for a in names if a in used and (axes is None or a in axes))
+        buckets.setdefault((id(dt.device_mesh), gathered, dt.dtype), []).append(j)
     out: list[torch.Tensor | None] = [None] * len(dts)
-    for (_, axes, dtype), idx in buckets.items():
+    for (_, gathered, dtype), idx in buckets.items():
         mesh = dts[idx[0]].device_mesh
         locals_ = [dts[j].to_local() for j in idx]
-        if not axes:
+        if not gathered:
             for j, loc in zip(idx, locals_):
                 out[j] = loc.clone()
             continue
+        coord = tuple(mesh.get_coordinate())
+        kept = [_dtensor_spec(dts[j], set(mesh.mesh_dim_names) - set(gathered)) for j in idx]
+        part = [_dtensor_spec(dts[j], set(gathered)) for j in idx]
+        for k_spec, g_spec in zip(kept, part):
+            if any(a is not None and b is not None for a, b in zip(k_spec, g_spec)):
+                raise ValueError(f"a dimension sharded on gathered and kept axes: {k_spec}, "
+                                 f"{g_spec}")
+        shapes = [tuple(sl.stop - sl.start for sl in local_slices(k_spec, dts[j].shape, mesh,
+                                                                  coord))
+                  for j, k_spec in zip(idx, kept)]
         flat = torch.cat([loc.reshape(-1) for loc in locals_])
-        group = axis_group(mesh, axes)
+        group = axis_group(mesh, gathered)
         n = dist.get_world_size(group)
         pieces = [torch.empty_like(flat) for _ in range(n)]
-        with torch.profiler.record_function(collective_label("all-gather", axes, n)):
+        with torch.profiler.record_function(collective_label("all-gather", gathered, n)):
             dist.all_gather(pieces, flat, group=group)
-        fulls = [torch.empty(dts[j].shape, dtype=dtype, device=flat.device) for j in idx]
+        fulls = [torch.empty(shape, dtype=dtype, device=flat.device) for shape in shapes]
         for g, piece in enumerate(pieces):
-            coord = rank_coordinate(mesh, dist.get_global_rank(group, g))
+            c = rank_coordinate(mesh, dist.get_global_rank(group, g))
             at = 0
-            for j, loc, full in zip(idx, locals_, fulls):
-                full[dtensor_slices(dts[j], coord)] = piece[at:at + loc.numel()].view(loc.shape)
+            for loc, full, g_spec in zip(locals_, fulls, part):
+                full[local_slices(g_spec, full.shape, mesh, c)] = \
+                    piece[at:at + loc.numel()].view(loc.shape)
                 at += loc.numel()
         for j, full in zip(idx, fulls):
             out[j] = full

@@ -21,6 +21,7 @@ from __future__ import annotations
 import os
 import pickle
 import tempfile
+import time
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
@@ -30,9 +31,13 @@ import torch.multiprocessing as mp
 
 from repro_torch.device import resolve_device
 
-__all__ = ["BACKENDS", "backend_for", "rank_device", "spawn"]
+__all__ = ["BACKENDS", "SPAWN_TIMEOUT", "backend_for", "rank_device", "spawn"]
 
 BACKENDS = ("gloo", "nccl")
+# The ranks' time limit, seconds: ranks that wait on each other's collectives
+# (a call one rank skipped, two ranks calling in another order) hang rather
+# than fail, so every spawn ends, one way or the other.
+SPAWN_TIMEOUT = 1800.0
 
 
 def backend_for(device: str | torch.device, world_size: int) -> str:
@@ -80,6 +85,7 @@ def spawn(
     device: str | torch.device,
     backend: str,
     args: Sequence = (),
+    timeout: float | None = SPAWN_TIMEOUT,
 ) -> list[Any]:
     """Run ``fn(*args)`` in ``n_shards`` processes, one rank each, and return
     their results in rank order.
@@ -89,7 +95,9 @@ def spawn(
     device)`` before ``fn`` runs; ``fn`` and ``args`` must pickle, and so
     must its result.  A rank that raises makes ``spawn`` raise with that
     rank's traceback (``torch.multiprocessing.ProcessRaisedException``),
-    after the other ranks are stopped.
+    after the other ranks are stopped.  Ranks still running after
+    ``timeout`` seconds (``None``: no limit) are stopped, and ``spawn``
+    raises ``TimeoutError``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -112,8 +120,21 @@ def spawn(
         # main module, and the ranks would start one after another.
         Path(tmp, "call.pkl").write_bytes(
             pickle.dumps((fn, tuple(args)), protocol=pickle.HIGHEST_PROTOCOL))
-        mp.spawn(_rank_main, args=(n_shards, str(dev.type), backend, tmp),
-                 nprocs=n_shards, join=True)
+        ctx = mp.start_processes(_rank_main, args=(n_shards, str(dev.type), backend, tmp),
+                                 nprocs=n_shards, join=False, start_method="spawn")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(timeout=None if deadline is None else 1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.terminate()
+                for proc in ctx.processes:
+                    proc.join(10)
+                    if proc.is_alive():
+                        proc.kill()
+                        proc.join()
+                raise TimeoutError(f"{n_shards} ranks ran past {timeout} s: a collective that "
+                                   "not every rank called hangs rather than fails")
         results = []
         for rank in range(n_shards):
             results.append(pickle.loads(Path(tmp, f"result-{rank}.pkl").read_bytes()))

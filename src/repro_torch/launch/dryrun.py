@@ -14,33 +14,38 @@ compiles nothing; for each cell, on one rank, it
   ``decode_state_shardings``.  The argument bytes are the rank's slices
   (``local_slices``): JAX's per-device shards;
 * counts one step of the path the port runs on a rank with
-  ``perf.op_cost.OpCounter``:
+  ``perf.op_cost.OpCounter``, under the rank's model axis
+  (``distributed.tensor_parallel``, recording its calls on ``meta``), so
+  every layer computes the rank's model shard as JAX's partitioned program
+  gives it to the device (heads, hidden width, experts, vocabulary; a
+  weight the rules replicate computed whole):
 
   - train: ``sharded_train_step``'s own body (``rank_train_step``).  The
-    rank casts its weight shards and gathers them whole, runs its data
-    shard's rows of each microbatch of the global batch (one counted
-    ``num_microbatches`` times), sums the float32 gradients over the data
-    group and updates its shards with AdamW;
-  - prefill: ``make_prefill_fn`` on the data shard's rows, after gathering
-    the weights whole (the port has no sharded prefill);
-  - decode: ``make_decode_fn`` on the data shard's rows, the weights and
-    every state leaf that the rules shard on ``model`` other than a cache's
-    sequence gathered whole; a cache sharded on its sequence is attended
-    window by window, as ``distributed.decode.sharded_decode_attention``
-    does, each layer's window counted as ``decode_attention`` over it.
+    rank casts its weight shards and gathers them over the data axes, runs
+    its data shard's rows of each microbatch of the global batch (one
+    counted ``num_microbatches`` times), reduce-scatters or sums the
+    float32 gradients of its model shards over the data group and updates
+    its shards with AdamW;
+  - prefill: ``sharded_serve.rank_prefill`` on the data shard's rows, the
+    bf16 weights gathered over the data axes where the serving rule shards
+    them there;
+  - decode: ``sharded_serve.rank_decode`` on the data shard's rows and the
+    rank's shards of the state; a cache sharded on its sequence is attended
+    window by window (``distributed.decode.window_decode_attention``).
 
   The gathers are counted among the collectives and their outputs in the
-  peak.  The collectives come in closed form
-  (``sharded_step.gather_collectives`` / ``step_collectives``, and the
-  window combine's two ``all_reduce``s a layer); a rank on ``meta`` has no
-  group to call;
+  peak.  A rank on ``meta`` has no group to call: its collectives are the
+  calls its run records instead of making them (``rank_collectives``): the
+  data axes' gathers and sums (``sharded_step.RankComm``) and the model
+  axis's calls of every layer, forward, backward and remat's recompute
+  (``distributed.tensor_parallel``), those of the microbatch counted once
+  made ``num_microbatches`` times.  The CPU tests and ``chip_smoke.py`` hold
+  them to the calls a traced run on a group makes;
 * prices the counts with ``perf.roofline.roofline_from_stats`` at the
   ``H100_SXM`` record's peaks.
 
-Nothing is divided by the model axis: under layout "2d" the ranks that
-differ on ``model`` compute the same rows (the port's model axis shards
-storage only), so ``useful_ratio`` shows that waste.  A cell whose modelled
-peak passes the card's 80 GB is ``"status": "ok", "fits": false``.
+A cell whose modelled peak passes the card's 80 GB is ``"status": "ok",
+"fits": false``.
 
 The scans' flops are their kernels' TF32 products, priced here at the bf16
 peak like every other flop.
@@ -56,6 +61,7 @@ Each cell is written to ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
@@ -67,24 +73,31 @@ import torch
 from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.configs.shapes import SHAPES, applicable_shapes
 from repro_torch.distributed.layout import layout_scope, pick_layout
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharded_serve import (
+    SERVE_FSDP_BYTES,
+    rank_decode,
+    rank_prefill,
+    serve_param_shardings,
+    windowed_caches,
+)
 from repro_torch.distributed.sharded_step import (
+    RankComm,
     data_group_axes,
     gather_collectives,
     rank_train_step,
-    step_collectives,
+    tp_axes,
 )
 from repro_torch.distributed.sharding import (
     P,
     batch_shardings,
     decode_state_shardings,
     local_slices,
-    param_shardings,
     spec_leaves,
     train_state_shardings,
 )
 from repro_torch.launch.mesh import MODEL_AXIS, MeshShape
 from repro_torch.models import model_zoo as zoo
-from repro_torch.models.transformer import Transformer
 from repro_torch.optim.adamw import AdamW, init_adamw_state
 from repro_torch.perf.coll_stats import collective_stats
 from repro_torch.perf.op_cost import OpCounter
@@ -93,13 +106,11 @@ from repro_torch.tree import param_tree, tree_leaves, tree_map
 
 __all__ = ["PRODUCTION_MESHES", "RESULTS_DIR", "SERVE_FSDP_BYTES", "argument_bytes",
            "cell_setup", "default_microbatches", "dryrun_cell", "main", "mesh_name",
-           "run_and_save"]
+           "rank_collectives", "run_and_save"]
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 PRODUCTION_MESHES = {False: MeshShape((16, 16), ("data", "model")),
                      True: MeshShape((2, 16, 16), ("pod", "data", "model"))}
-SERVE_FSDP_BYTES = 12 * 2**30  # JAX's serving threshold (src/repro/launch/dryrun.py:94)
-_CACHES = ("k", "v", "cross_k", "cross_v", "shared_k", "shared_v")
 
 
 def mesh_name(mesh: MeshShape) -> str:
@@ -135,117 +146,146 @@ def argument_bytes(tree, specs, mesh: MeshShape) -> int:
                for x, spec in zip(tree_leaves(tree), spec_leaves(specs)))
 
 
-def _gathered(tree, shard_tree, specs, mesh: MeshShape):
-    """The gather of the weights before the step: ``tree``'s whole tensors,
-    made as new ``meta`` tensors (inside the counter, so they enter the
-    peak), after the rank's shards were read; the records of the calls."""
-    leaves, local = tree_leaves(tree), tree_leaves(shard_tree)
-    records = gather_collectives([(tuple(x.shape), x.dtype) for x in leaves],
-                                 spec_leaves(specs), mesh)
-    full = [torch.empty_like(x, device="meta") if tuple(x.shape) != tuple(s.shape) else s
-            for x, s in zip(leaves, local)]
-    it = iter(full)
-    return tree_map(lambda _: next(it), tree), records
-
-
-def _counted_once(counter: OpCounter, n: int):
+def _counted_once(counter: OpCounter, n: int, records: list | None = None):
     """Microbatch indices for ``microbatch_grads``: index 0 only, its body
-    counted ``n`` times (the trip-count analogue)."""
+    counted ``n`` times (the trip-count analogue) and the calls it records
+    into ``records`` made ``n`` times."""
+    records = [] if records is None else records
+    start = len(records)
     with counter.repeat(n):
         yield 0
+    records[start:] = records[start:] * n
 
 
-def _train_work(cfg, counter: OpCounter, state: dict, specs: dict, batch: dict, bsh,
-                mesh: MeshShape, n: int) -> tuple[list[dict], str]:
+def _train_work(cfg, counter: OpCounter, c: dict, mesh: MeshShape, optimizer=None):
     """One rank's ``sharded_train_step`` on ``meta``: its body
-    (``rank_train_step``) on the rank's slices, the gather's results made as
-    new tensors and no sum; returns the step's collectives."""
-    data = data_group_axes(bsh)
+    (``rank_train_step``) on the rank's slices, under its model axis, with
+    a ``RankComm`` that records the calls instead of making them; returns
+    the calls and the path."""
+    state = dict(c["state"], params=param_tree(c["state"]["params"]))
+    specs, batch, n = c["specs"], c["batch"], c["n_ub"]
+    data = data_group_axes(c["bsh"])
     d_size = math.prod(mesh.shape[a] for a in data)
     local = {key: _local(state[key], specs[key], mesh) for key in ("params", "m", "v")}
     local.update(step=state["step"], lr=state["lr"])
     counter.hold(local, batch)  # the rank holds the global batch, as the step takes it
     leaves = tree_leaves(state["params"])
     coord = (0,) * len(mesh.sizes)
-
-    def gather(cast: list) -> list[torch.Tensor]:
-        """The whole weights: a leaf the rank holds whole is its cast, the
-        rest new tensors (the calls are the collective records)."""
-        return [c if tuple(c.shape) == tuple(p.shape)
-                else torch.empty(p.shape, dtype=c.dtype, device="meta")
-                for p, c in zip(leaves, cast)]
-
-    slices = [local_slices(sp, p.shape, mesh, coord)
-              for p, sp in zip(leaves, spec_leaves(specs["params"]))]
-    rank_train_step(cfg, AdamW(), zoo.make_loss_fn(cfg), state, local, batch, n=n,
-                    d_size=d_size, d_idx=0, gather=gather, slices=slices,
-                    indices=_counted_once(counter, n))
-    records = step_collectives(cfg, state["params"], specs["params"], mesh, bsh)
+    comm = RankComm(mesh, spec_leaves(specs["params"]), [p.shape for p in leaves], data,
+                    coordinate=coord,
+                    compressed=optimizer is not None and optimizer.compressor is not None)
+    axis = tp.model_axis(mesh, coordinate=coord, records=comm.records) \
+        if tp_axes(mesh, data) else None
+    with tp.scope(axis):
+        rank_train_step(cfg, optimizer or AdamW(), zoo.make_loss_fn(cfg), state, local, batch,
+                        n=n, d_size=d_size, d_idx=0, comm=comm,
+                        indices=_counted_once(counter, n, comm.records))
     per_rank = next(iter(batch.values())).shape[0] // (n * d_size)
-    path = (f"sharded_train_step on one rank: the weights cast and gathered whole, "
-            f"{n} microbatch{'es' if n > 1 else ''} of {per_rank} row{'s' if per_rank > 1 else ''} "
-            f"(one counted x{n}), the float32 gradients summed over "
-            f"{'(' + ','.join(data) + ')' if d_size > 1 else 'no group'}, AdamW on the rank's shards")
-    return records, path
+    tp_size = mesh.shape[MODEL_AXIS] if axis is not None else 1
+    path = (f"sharded_train_step on one rank: the weights cast and gathered over "
+            f"{'(' + ','.join(data) + ')' if d_size > 1 else 'no group'}"
+            + (f", each layer computing its model-axis shard (tensor and expert parallelism "
+               f"over {tp_size} ranks)" if tp_size > 1 else ", computed whole")
+            + f", {n} microbatch{'es' if n > 1 else ''} of {per_rank} "
+            f"row{'s' if per_rank > 1 else ''} (one counted x{n}), the float32 gradients "
+            f"reduce-scattered or summed over "
+            f"{'(' + ','.join(data) + ')' if d_size > 1 else 'no group'} into the parameters' "
+            "sharding, AdamW on the rank's shards")
+    return comm.records, path, None
 
 
 def _serve_specs(cfg, params, mesh: MeshShape):
-    fsdp = cfg.param_count() * 2 / mesh.shape[MODEL_AXIS] > SERVE_FSDP_BYTES
-    return param_shardings(params, cfg, mesh, fsdp=fsdp)
+    return serve_param_shardings(params, cfg, mesh)
 
 
-def _prefill_work(cfg, counter: OpCounter, params, psh, batch: dict, bsh, mesh: MeshShape):
-    local_p, local_batch = _local(params, psh, mesh), _local(batch, bsh, mesh)
-    counter.hold(local_p, local_batch)
-    full, records = _gathered(params, local_p, psh, mesh)
-    del local_p
-    rows = next(iter(local_batch.values())).shape[0]
-    out = zoo.make_prefill_fn(cfg, device="meta")(Transformer(cfg, full), local_batch)
-    return records, f"make_prefill_fn on {rows} row{'s' if rows > 1 else ''} a rank, the bf16 " \
-                    "weights gathered whole (the port has no sharded prefill)", out
+def _model_shapes(params, specs, mesh: MeshShape, model) -> list:
+    """Each weight's slice on the ``model`` axes alone."""
+    coord = (0,) * len(mesh.sizes)
+    return [tuple(sl.stop - sl.start for sl in local_slices(
+        P(*(tuple(a for a in P(e).axes() if a in model) for e in sp)), p.shape, mesh, coord))
+        for p, sp in zip(tree_leaves(params), spec_leaves(specs))]
 
 
-def _decode_work(cfg, counter: OpCounter, params, psh, batch: dict, bsh, ssh, mesh: MeshShape):
-    tp = mesh.shape[MODEL_AXIS]
-    state, sspec = batch["state"], ssh
+def _serve_rank(cfg, params, psh, mesh: MeshShape, data, counter: OpCounter, *held):
+    """The rank's model shards of the bf16 weights on ``meta`` (new tensors
+    where FSDP shards them over the data axes: the gather's results), its
+    model axis recording into a list, and that list, which starts with the
+    weights' gathers over the data axes (``sharded_serve``'s
+    ``gather_tensors``)."""
+    model = tp_axes(mesh, data)
     local_p = _local(params, psh, mesh)
-    local_tok = _local(batch["tokens"], bsh, mesh)
-    local_state = _local(state, sspec, mesh)
-    counter.hold(local_p, local_tok, local_state)
-    full, records = _gathered(params, local_p, psh, mesh)
-    del local_p
-    # state leaves sharded on ``model`` other than a cache's sequence: gathered over model
-    gathered, windows = {}, 0
-    for key in sorted(state):
-        spec = sspec[key]
-        if MODEL_AXIS not in P(*spec).axes():
-            gathered[key] = local_state[key]
-            continue
-        if key in _CACHES and spec[2] == MODEL_AXIS:
-            gathered[key] = local_state[key]
-            windows += state[key].shape[0]
-            continue
-        data_only = P(*(None if e == MODEL_AXIS else e for e in spec))
-        shape = _local_shape(state[key].shape, data_only, mesh)
-        records += gather_collectives([(shape, state[key].dtype)], [P(*(
-            MODEL_AXIS if e == MODEL_AXIS else None for e in spec))], mesh)
-        gathered[key] = torch.empty(shape, dtype=state[key].dtype, device="meta")
-    del local_state
+    counter.hold(local_p, *held)
+    shapes = _model_shapes(params, psh, mesh, model)
+    keep = [P(*(tuple(a for a in P(e).axes() if a not in model) for e in sp))
+            for sp in spec_leaves(psh)]
+    records = gather_collectives([(sh, p.dtype) for sh, p in zip(shapes, tree_leaves(params))],
+                                 keep, mesh)
+    it = iter(shapes)
+    tree = tree_map(lambda x: (lambda sh: x if tuple(x.shape) == sh else
+                               torch.empty(sh, dtype=x.dtype, device="meta"))(next(it)),
+                    local_p)
+    axis = tp.model_axis(mesh, coordinate=(0,) * len(mesh.sizes), records=records) \
+        if model else None
+    return tree, axis, records
+
+
+def _prefill_work(cfg, counter: OpCounter, c: dict, mesh: MeshShape):
+    params, psh, bsh = c["params"], c["psh"], c["bsh"]
+    data = data_group_axes(bsh)
+    local_batch = _local(c["batch"], bsh, mesh)
+    tree, axis, records = _serve_rank(cfg, params, psh, mesh, data, counter, local_batch)
+    with tp.scope(axis):
+        out = rank_prefill(cfg, tree, local_batch)
+    rows = next(iter(local_batch.values())).shape[0]
+    tp_size = mesh.shape[MODEL_AXIS] if axis is not None else 1
+    return records, (f"sharded_prefill on {rows} row{'s' if rows > 1 else ''} a rank, the bf16 "
+                     "weights " + ("gathered over the data axes" if any(
+                         set(P(*sp).axes()) & set(data) for sp in spec_leaves(psh))
+                         else "held whole on the data axes")
+                     + (f", each layer computing its model-axis shard over {tp_size} ranks, "
+                        "logits on a vocabulary shard" if tp_size > 1 else "")), out
+
+
+def _decode_work(cfg, counter: OpCounter, c: dict, mesh: MeshShape):
+    params, psh, bsh, ssh = c["params"], c["psh"], c["bsh"], c["ssh"]
+    state = c["batch"]["state"]
+    data = data_group_axes({"tokens": bsh})
+    local_tok = _local(c["batch"]["tokens"], bsh, mesh)
+    local_state = _local(state, ssh, mesh)
+    tree, axis, records = _serve_rank(cfg, params, psh, mesh, data, counter, local_tok,
+                                      local_state)
+    windows = windowed_caches(ssh)
+    if axis is not None:
+        axis = dataclasses.replace(axis, windows=windows)
+    with tp.scope(axis):
+        out = rank_decode(cfg, tree, local_tok, local_state)
     rows = local_tok.shape[0]
-    out, _ = zoo.make_decode_fn(cfg, device="meta")(Transformer(cfg, full), local_tok, gathered)
-    # each window's flash-decoding combine: an all_reduce MAX of the (B, 1, H)
-    # lse and a SUM of the weighted outputs and weights (distributed/decode.py)
-    lse = rows * cfg.num_heads * 4
-    for _ in range(windows // 2):  # k and v: one attention
-        records.append({"kind": "all-reduce", "result_bytes": float(lse), "axes": (MODEL_AXIS,),
-                        "group": tp})
-        records.append({"kind": "all-reduce", "axes": (MODEL_AXIS,), "group": tp,
-                        "result_bytes": float(rows * cfg.num_heads * (cfg.head_dim + 1) * 4)})
-    path = (f"make_decode_fn on {rows} row{'s' if rows > 1 else ''} a rank, the bf16 weights "
-            "gathered whole" + (f", {windows // 2} attention{'s' if windows > 2 else ''} over "
-                                "cache windows sharded on model (sharded_decode_attention's "
-                                "combine)" if windows else ""))
+    n_win = sum(state[k].shape[0] for k in windows) // 2
+    path = (f"sharded_decode on {rows} row{'s' if rows > 1 else ''} a rank, each layer "
+            f"computing its model-axis shard over {mesh.shape[MODEL_AXIS]} ranks, the state's "
+            "shards updated in place" + (f", {n_win} attention{'s' if n_win > 1 else ''} over "
+                                         "cache windows sharded on model (the heads gathered, "
+                                         "the windows combined)" if n_win else ""))
     return records, path, out
+
+
+_WORK = {"train": _train_work, "prefill": _prefill_work, "decode": _decode_work}
+
+
+def rank_collectives(cfg, kind: str, c: dict, mesh: MeshShape, *, optimizer=None) -> list[dict]:
+    """The collectives one rank of ``mesh`` makes in a train step, a prefill
+    or a decode step (``kind``), as its run on ``meta`` records them, under
+    the caller's layout: records for ``perf.coll_stats``
+    (``{"kind", "result_bytes", "group", "axes"}``).  ``c`` holds what
+    ``cell_setup`` gives (train: ``state``, ``specs``, ``batch``, ``bsh``,
+    ``n_ub``; prefill: ``params``, ``psh``, ``batch``, ``bsh``; decode also
+    ``ssh`` and the state in ``batch["state"]``); only shapes and dtypes are
+    read.  ``optimizer`` (train) is the step's (default AdamW); its
+    compressor changes the gradients' sums."""
+    with OpCounter() as counter:
+        args = (optimizer,) if kind == "train" else ()
+        records, _, _ = _WORK[kind](cfg, counter, c, mesh, *args)
+    return records
 
 
 def cell_setup(cfg, spec, mesh: MeshShape, *, num_microbatches: int | None = None) -> dict:
@@ -283,8 +323,9 @@ def dryrun_cell(cfg, spec, mesh: MeshShape, *, arch: str | None = None,
                 calls: list | None = None, num_microbatches: int | None = None) -> dict:
     """The record of one cell: ``cfg`` at ``spec`` on one rank of ``mesh``
     (a ``MeshShape`` with a ``model`` axis), priced at ``H100_SXM``.  ``calls``, if
-    given, receives the step's collective records (``perf.coll_stats``);
-    ``num_microbatches`` replaces JAX's default count for a train cell."""
+    given, receives the collectives the rank's meta run records
+    (``rank_collectives``); ``num_microbatches`` replaces JAX's default
+    count for a train cell."""
     arch = arch or cfg.name
     app = applicable_shapes(cfg)[spec.name] if spec.name in SHAPES else spec
     if isinstance(app, str):
@@ -293,21 +334,12 @@ def dryrun_cell(cfg, spec, mesh: MeshShape, *, arch: str | None = None,
     chips = mesh.size
     t0 = time.time()
     c = cell_setup(cfg, spec, mesh, num_microbatches=num_microbatches)
-    layout, n_ub, args, batch = c["layout"], c["n_ub"], c["args"], c["batch"]
+    layout, n_ub, args = c["layout"], c["n_ub"], c["args"]
     t_build = time.time() - t0
     t0 = time.time()
     counter = OpCounter()
     with layout_scope(layout), counter:
-        if spec.kind == "train":
-            records, path = _train_work(cfg, counter, c["state"], c["specs"], batch, c["bsh"],
-                                        mesh, n_ub)
-            out = None
-        elif spec.kind == "prefill":
-            records, path, out = _prefill_work(cfg, counter, c["params"], c["psh"], batch,
-                                               c["bsh"], mesh)
-        else:
-            records, path, out = _decode_work(cfg, counter, c["params"], c["psh"], batch,
-                                              c["bsh"], c["ssh"], mesh)
+        records, path, out = _WORK[spec.kind](cfg, counter, c, mesh)
     out_bytes = 0 if out is None else out.numel() * out.element_size()
     t_count = time.time() - t0
     if calls is not None:

@@ -23,6 +23,15 @@ and a dk/dv pass as in JAX (whose backward is plain ``jnp`` too), so no
 sequence at its own position (continuous batching); it is a plain
 PyTorch product, as JAX's is plain ``jnp``, and reaches no kernel.
 
+Under a model axis (``distributed.tensor_parallel``) the weights are the
+rank's shards: ``wq``, ``wk``, ``wv`` on heads and ``wo`` on its head rows
+where the rules shard them.  The head counts are read from the weights'
+shapes, so the rank computes its heads only (the flash kernel runs on
+``H/tp`` of them); the input enters the region through ``copy_to`` and the
+output projection's partial sum leaves through ``reduce_from``.  When the
+KV heads do not divide the axis, ``wk``/``wv`` are whole, and each rank
+takes the KV heads its query heads read (``tensor_parallel.kv_for_heads``).
+
 With ``lse_partial`` it returns a window's flash-decoding partials (the
 normalised output and its log-sum-exp), which
 ``distributed.decode.sharded_decode_attention`` combines across the ranks
@@ -34,6 +43,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, normal, rope_frequencies
 
@@ -82,15 +92,32 @@ def project_qkv(params, cfg, x: torch.Tensor, *, positions: torch.Tensor | None 
                 rope: bool = True):
     """q (B, S, H, hd), k and v (B, S, KV, hd).  With ``rope``, q and k are
     rotated at ``positions`` ((S,) or per sequence (B, S); default 0..S-1)."""
-    q = _head_proj(x, params["wq"])
-    k = _head_proj(x, params["wk"])
+    xq = _region_input(params, cfg, x)
+    q = _head_proj(xq, params["wq"])
+    k = _head_proj(xq if _sharded(params["wk"], cfg.num_kv_heads) else x, params["wk"])
     if rope:
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, _head_proj(x, params["wv"])
+    return q, k, _head_proj(xq if _sharded(params["wv"], cfg.num_kv_heads) else x, params["wv"])
+
+
+def _sharded(w: torch.Tensor, heads: int) -> bool:
+    """Whether a (d, heads, hd) projection holds the rank's shard of its heads."""
+    return w.shape[1] != heads
+
+
+def _region_input(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the sharded heads' projections read it: through ``copy_to``
+    when the rank holds a shard of the query heads."""
+    return tp.copy_to(x) if _sharded(params["wq"], cfg.num_heads) else x
+
+
+def _exit(params, cfg, out: torch.Tensor) -> torch.Tensor:
+    """The output projection's partial sum over the rank's heads, summed."""
+    return tp.reduce_from(out) if params["wo"].shape[0] != cfg.num_heads else out
 
 
 def _repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
@@ -233,9 +260,16 @@ def attention(params, cfg, x: torch.Tensor, *, causal: bool = True,
     each (cross-attention, from ``compute_kv`` over the encoder's states),
     in place of x's.  ``rope=False`` rotates nothing.  The ``"auto"`` rule
     looks at the longer of S and S_kv, as JAX's does."""
-    q, k, v = project_qkv(params, cfg, x, rope=rope)
-    if kv_override is not None:
+    if kv_override is None:
+        q, k, v = project_qkv(params, cfg, x, rope=rope)
+    else:  # cross-attention: x's keys and values are not computed
+        q = _head_proj(_region_input(params, cfg, x), params["wq"])
+        if rope:
+            cos, sin = rope_frequencies(cfg.head_dim, torch.arange(x.shape[1], device=x.device),
+                                        cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
         k, v = kv_override
+    k, v = tp.kv_for_heads(k, q.shape[2], cfg), tp.kv_for_heads(v, q.shape[2], cfg)
     impl = impl or cfg.attention_impl
     if impl == "auto":
         impl = "blocked" if max(q.shape[1], k.shape[1]) > 2048 else "dense"
@@ -245,12 +279,14 @@ def attention(params, cfg, x: torch.Tensor, *, causal: bool = True,
         out = blocked_attention(q, k, v, causal, cfg.attention_block_q, cfg.attention_block_kv)
     else:
         raise ValueError(f"attention impl {impl!r}: use 'auto', 'dense' or 'blocked'")
-    return _out_proj(params, out)
+    return _exit(params, cfg, _out_proj(params, out))
 
 
 def compute_kv(params, cfg, x: torch.Tensor, *, rope: bool = False):
     """K/V for cross-attention from encoder states, (B, S, KV, hd) each.
-    ``rope`` is accepted and ignored, as in JAX."""
+    ``rope`` is accepted and ignored, as in JAX.  On the rank's shard of
+    the KV heads, ``x`` enters through ``copy_to``."""
+    x = tp.copy_to(x) if _sharded(params["wk"], cfg.num_kv_heads) else x
     return _head_proj(x, params["wk"]), _head_proj(x, params["wv"])
 
 
@@ -266,6 +302,7 @@ def decode_attention(
     lse_partial: bool = False,
     rope: bool = True,
     rope_pos=None,
+    every_head: bool = False,
 ):
     """Single-token decode with a KV cache and per-sequence positions:
     slots of a continuous-batching server progress independently.
@@ -281,21 +318,27 @@ def decode_attention(
     or with ``lse_partial`` the normalised local output before the output
     projection (B, 1, H, hd), its float32 log-sum-exp (B, 1, H) and the
     caches: the partials the sharded decode (``distributed/decode.py``)
-    combines across windows.
+    combines across windows; with ``every_head``, on the rank's shard of
+    the query heads, the heads are gathered over the model axis first.
     """
     b, hd = x.shape[0], cfg.head_dim
     pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (b,)).long()
     rp = pos if rope_pos is None else torch.broadcast_to(
         torch.as_tensor(rope_pos, device=x.device), (b,))
     q, k_new, v_new = project_qkv(params, cfg, x, positions=rp[:, None], rope=rope)
+    if every_head and q.shape[2] != cfg.num_heads:
+        q = tp.gather(q, 2)
     if update_cache:
         bidx = torch.arange(b, device=x.device)
         cache_k[bidx, pos] = k_new[:, 0].to(cache_k.dtype)
         cache_v[bidx, pos] = v_new[:, 0].to(cache_v.dtype)
-    skv, kvh = cache_k.shape[1], cache_k.shape[2]
-    g = cfg.num_heads // kvh
+    h = q.shape[2]
+    cache_kr = tp.kv_for_heads(cache_k, h, cfg)
+    cache_vr = tp.kv_for_heads(cache_v, h, cfg)
+    skv, kvh = cache_kr.shape[1], cache_kr.shape[2]
+    g = h // kvh
     qg = q.reshape(b, 1, kvh, g, hd)
-    scores = torch.einsum("bqkgd,btkd->bkgqt", qg, cache_k.to(q.dtype)).float() * hd**-0.5
+    scores = torch.einsum("bqkgd,btkd->bkgqt", qg, cache_kr.to(q.dtype)).float() * hd**-0.5
     valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]  # (B, skv)
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     if lse_partial:
@@ -304,16 +347,16 @@ def decode_attention(
         m = scores.amax(dim=-1)
         p = torch.exp(scores - m[..., None])
         l = p.sum(dim=-1).clamp_min(1e-30)  # noqa: E741
-        num = torch.einsum("bkgqt,btkd->bkgqd", p.to(q.dtype), cache_v.to(q.dtype))
+        num = torch.einsum("bkgqt,btkd->bkgqd", p.to(q.dtype), cache_vr.to(q.dtype))
         out_local = num / l[..., None].to(num.dtype)
         lse = m + torch.log(l)
-        out_local = out_local.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
-        lse = lse.permute(0, 3, 1, 2).reshape(b, 1, cfg.num_heads)
+        out_local = out_local.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+        lse = lse.permute(0, 3, 1, 2).reshape(b, 1, h)
         return out_local, lse, cache_k, cache_v
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqt,btkd->bkgqd", probs, cache_v.to(q.dtype))
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
-    return _out_proj(params, out), cache_k, cache_v
+    out = torch.einsum("bkgqt,btkd->bkgqd", probs, cache_vr.to(q.dtype))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+    return _exit(params, cfg, _out_proj(params, out)), cache_k, cache_v
 
 
 class Attention(nn.Module):

@@ -14,16 +14,20 @@ The modules' parameters take gradients (the training path,
 identity whose backward rounds the cotangent to bf16, as JAX's custom VJP
 does at every layer boundary.
 
-Not ported: ``shard_hint`` / ``head_shard``, GSPMD's sharding hints (no-ops
-outside a mesh).  The port's sharded train step
-(``distributed.sharded_step``) places its weights and microbatch rows
-itself and needs no hint inside the model.
+JAX's ``shard_hint`` / ``head_shard`` are GSPMD's sharding hints (no-ops
+outside a mesh).  Their counterpart is ``distributed.tensor_parallel``: under
+a model axis the layers compute the rank's shard of their heads, hidden
+width, experts or vocabulary, and the scans run on the rank's heads, as the
+hints pin them; the sharded steps (``distributed.sharded_step``,
+``distributed.sharded_serve``) place the weights and the rows.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.distributed import tensor_parallel as tp
 
 __all__ = [
     "RMSNorm",
@@ -96,11 +100,18 @@ def init_swiglu(gen, d: int, d_ff: int, *, dtype=torch.float32):
     }
 
 
-def swiglu(params, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU.  ``d_ff`` is the layer's full hidden width: when the weights
+    hold fewer columns, they are the rank's shard of it (split by columns,
+    then by rows), and the partial product is summed over the model axis."""
     dt = x.dtype
+    sharded = d_ff is not None and params["w_gate"].shape[-1] != d_ff
+    if sharded:
+        x = tp.copy_to(x)
     gate = torch.nn.functional.silu(x @ params["w_gate"].to(dt))
     up = x @ params["w_up"].to(dt)
-    return (gate * up) @ params["w_down"].to(dt)
+    out = (gate * up) @ params["w_down"].to(dt)
+    return tp.reduce_from(out) if sharded else out
 
 
 def rope_frequencies(head_dim: int, positions: torch.Tensor, theta: float = 1e4):

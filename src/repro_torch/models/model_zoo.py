@@ -3,9 +3,11 @@
 
 ``input_specs`` gives tensors on the ``meta`` device, PyTorch's shapes
 without storage, where JAX gives ``ShapeDtypeStruct``s.  JAX's
-``_ubatch_constraint`` is a GSPMD sharding hint, a no-op outside a mesh, and
-is not ported: the sharded train step (``distributed.sharded_step``) places
-each microbatch's rows on the data group itself, as the hint asks GSPMD to.
+``_ubatch_constraint`` is a GSPMD sharding hint, a no-op outside a mesh; its
+counterpart is the sharded train step (``distributed.sharded_step``), which
+places each microbatch's rows on the data group itself, as the hint asks
+GSPMD to, while ``distributed.tensor_parallel`` keeps the head axes on
+``model`` (JAX's ``head_shard``).
 The loss and train steps take every family; a batch carries
 ``frames`` for the encoder-decoder family and may carry ``prefix_embeds``
 for the vision frontend, as ``input_specs`` gives them, and microbatches
@@ -42,7 +44,7 @@ def make_loss_fn(cfg: ModelConfig):
 
     def loss_fn(params, batch):
         logits = forward_params(param_tree(params), cfg, batch)
-        return cross_entropy_loss(logits, batch["labels"])
+        return cross_entropy_loss(logits, batch["labels"], vocab=cfg.padded_vocab)
 
     return loss_fn
 

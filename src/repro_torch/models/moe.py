@@ -16,6 +16,14 @@ formed (5.4 GB a layer in float32 at 16384 tokens).  A token's ``k``
 choices are distinct experts, so no two slots land on one entry.  The
 products are plain PyTorch matrix products, as JAX's are plain ``einsum``:
 no Pallas kernel is involved.
+
+Under a model axis (``distributed.tensor_parallel``) the experts are the
+rank's shard (``E/tp`` of them, the rules' expert parallelism): the router
+and the dispatch stay replicated, so capacities and drops are JAX's, case
+for case; the rank builds the one-hot tensors of its experts' slots only,
+runs its experts, combines over them, and the partial sums are summed over
+the axis.  The gates enter the combine through ``copy_to``, since each
+rank's combine reads only its experts' gates.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import normal
 
 __all__ = ["MoE", "dispatch", "experts", "init_moe", "moe_layer", "router_load_balancing_loss"]
@@ -69,7 +78,9 @@ def dispatch(params, cfg, x: torch.Tensor):
     """Route ``x`` (G, T, d).  Returns ``(disp, comb, gates, top_idx)``:
     the one-hot dispatch (G, T, E, C) in x's dtype, the combine weights of
     the same shape (gates where kept, cast to x's dtype), and the float32
-    router probabilities (G·T, E) and choices (G·T, k) for the aux loss."""
+    router probabilities (G·T, E) and choices (G·T, k) for the aux loss.
+    When ``params`` hold the rank's shard of the experts, ``disp`` and
+    ``comb`` hold their ``E/tp`` experts' slots only."""
     g, tg, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
     logits = x @ params["router"].to(x.dtype)  # (G, T, E)
@@ -85,13 +96,21 @@ def dispatch(params, cfg, x: torch.Tensor):
     pos = ((flat.cumsum(1) - flat).reshape(g, tg, k, e) * onehot).sum(-1)  # (G, T, k)
     keep = pos < capacity  # overflow dropped (GShard)
 
+    e_local = params["w_gate"].shape[0]
+    if e_local != e:  # the rank's experts: their slots only
+        idx = idx - tp.index() * e_local
+        keep = keep & (idx >= 0) & (idx < e_local)
+        idx = idx.clamp(0, e_local - 1)
+        top_vals = tp.copy_to(top_vals)
     where = (torch.arange(g, device=x.device)[:, None, None].expand(g, tg, k),
              torch.arange(tg, device=x.device)[None, :, None].expand(g, tg, k),
              idx, pos.clamp(max=capacity - 1))
-    shape = (g, tg, e, capacity)
-    disp = x.new_zeros(shape).index_put(where, keep.to(x.dtype))
+    shape = (g, tg, e_local, capacity)
+    # accumulated: a dropped slot (clamped onto slot C - 1, or onto another
+    # rank's expert) adds 0 where a kept one wrote its value
+    disp = x.new_zeros(shape).index_put(where, keep.to(x.dtype), accumulate=True)
     comb = torch.zeros(shape, dtype=torch.float32, device=x.device).index_put(
-        where, top_vals * keep).to(x.dtype)
+        where, top_vals * keep, accumulate=True).to(x.dtype)
     return disp, comb, gates, top_idx
 
 
@@ -107,19 +126,23 @@ def moe_layer(params, cfg, x: torch.Tensor, *, return_aux: bool = False):
     """x: (B, S, d) -> (B, S, d); with ``return_aux`` also the router's
     load-balancing loss.  Groups of ``moe_group_size`` tokens (JAX's rule)."""
     b, s, d = x.shape
-    e = cfg.num_experts
+    e = params["w_gate"].shape[0]  # the rank's experts under a model axis
     tg = _groups(cfg, s)
     g = b * (s // tg)
     xg = x.reshape(g, tg, d)
     disp, comb, gates, top_idx = dispatch(params, cfg, xg)
+    sharded = e != cfg.num_experts
     c = disp.shape[-1]
     # einsum("gtec,gtd->gecd"), expert-major for the experts' batched products
-    expert_in = (disp.reshape(g, tg, e * c).transpose(1, 2) @ xg).view(g, e, c, d)
+    xin = tp.copy_to(xg) if sharded else xg
+    expert_in = (disp.reshape(g, tg, e * c).transpose(1, 2) @ xin).view(g, e, c, d)
     out = experts(params, expert_in.transpose(0, 1).reshape(e, g * c, d))
     out = out.view(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
     y = (comb.reshape(g, tg, e * c) @ out).reshape(b, s, d)  # einsum("gtec,gecd->gtd")
-    if return_aux:
-        return y, router_load_balancing_loss(gates, top_idx, e)
+    if sharded:
+        y = tp.reduce_from(y)
+    if return_aux:  # the replicated gates: computed once, not summed
+        return y, router_load_balancing_loss(gates, top_idx, cfg.num_experts)
     return y
 
 

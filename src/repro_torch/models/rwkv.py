@@ -15,6 +15,16 @@ and under autograd its backward kernel; on the CPU its plain per-step
 loop.  Decode is one state update in plain
 PyTorch, as JAX's is plain ``jnp``.  Weights stay in ``cfg.param_dtype``
 and are cast to the activations' dtype at use, as in JAX.
+
+Under a model axis (``distributed.tensor_parallel``) the time mix's weights
+are replicated (the rules leave them whole), so its projections are
+computed whole on every model rank, as GSPMD does; the scan runs on the
+rank's heads, as JAX's ``head_shard`` pins them, when the axis divides
+them (``split``, then ``gather`` of the output).  The channel mix's ``ck``
+and ``cv`` are the rank's shard of the hidden width (columns, then rows)
+where the rules shard it.  Decode keeps the rank's shard of the WKV
+state: its heads, or, where the heads do not divide the axis, its rows of
+the key dimension, whose partial outputs are summed.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.recurrence.ops import wkv6_scan_logw
 from repro_torch.models.layers import init_dense, normal
 
@@ -126,17 +137,30 @@ def rwkv_time_mix_seq(params: dict, cfg, x: torch.Tensor, *, x_prev=None) -> tor
     heads = d // HEAD_DIM
     r, k, v, g, log_w = _projections(params, x, _token_shift(x, x_prev))
     rh, kh, vh = (t.reshape(b, s, heads, HEAD_DIM).float() for t in (r, k, v))
+    lw = log_w.reshape(b, s, heads, HEAD_DIM)
     u = params["u_bonus"].float().reshape(heads, HEAD_DIM)
-    y = wkv6_scan_logw(rh, kh, vh, log_w.reshape(b, s, heads, HEAD_DIM), u)
-    return _group_norm_out(params, y, g, x.dtype)
+    if not tp.splits(heads):
+        return _group_norm_out(params, wkv6_scan_logw(rh, kh, vh, lw, u), g, x.dtype)
+    # the scan on the rank's heads: one split of the four inputs, one gather of y
+    rh, kh, vh, lw = tp.split(torch.stack([rh, kh, vh, lw]), 3).unbind(0)
+    y = wkv6_scan_logw(rh, kh, vh, lw, tp.split(u, 0))
+    return _group_norm_out(params, tp.gather(y, 2), g, x.dtype)
+
+
+def _channel_mix(params: dict, cfg, x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """r * (relu(k)^2 @ cv), on the rank's shard of the hidden width where
+    ``ck`` holds fewer than ``cfg.d_ff`` columns."""
+    dt = x.dtype
+    sharded = params["ck"].shape[-1] != cfg.d_ff
+    xk = _mix(x, xs, params["mu_ck"])
+    k = (tp.copy_to(xk) if sharded else xk) @ params["ck"].to(dt)
+    r = torch.sigmoid(_mix(x, xs, params["mu_cr"]) @ params["cr"].to(dt))
+    kv = torch.relu(k).square() @ params["cv"].to(dt)
+    return r * (tp.reduce_from(kv) if sharded else kv)
 
 
 def rwkv_channel_mix_seq(params: dict, cfg, x: torch.Tensor, *, x_prev=None) -> torch.Tensor:
-    xs = _token_shift(x, x_prev)
-    dt = x.dtype
-    k = _mix(x, xs, params["mu_ck"]) @ params["ck"].to(dt)
-    r = torch.sigmoid(_mix(x, xs, params["mu_cr"]) @ params["cr"].to(dt))
-    return r * (torch.relu(k).square() @ params["cv"].to(dt))
+    return _channel_mix(params, cfg, x, _token_shift(x, x_prev))
 
 
 def rwkv_time_mix_step(params: dict, cfg, xt: torch.Tensor, wkv_state: torch.Tensor,
@@ -150,16 +174,23 @@ def rwkv_time_mix_step(params: dict, cfg, xt: torch.Tensor, wkv_state: torch.Ten
     wh = torch.exp(log_w).reshape(b, heads, HEAD_DIM)
     u = params["u_bonus"].float().reshape(heads, HEAD_DIM)
     state = wkv_state.float()
+    # the rank's shard of the state: its heads (dim 1) or its key rows (dim 2)
+    dim = 1 if state.shape[1] != heads else 2 if state.shape[2] != HEAD_DIM else None
+    if dim is not None:
+        lo, hi = tp.local_range(state.shape[dim] * tp.size())
+        rh, kh, wh = (t.narrow(dim, lo, hi - lo) for t in (rh, kh, wh))
+        u = u.narrow(dim - 1, lo, hi - lo)
+        vh = vh.narrow(1, lo, hi - lo) if dim == 1 else vh
     kv = kh[..., :, None] * vh[..., None, :]
     y = torch.einsum("bhk,bhkv->bhv", rh, state + u[None, :, :, None] * kv)
     s_new = wh[..., None] * state + kv
+    if dim == 1:
+        y = tp.gather(y, 1)
+    elif dim == 2:
+        y = tp.reduce_from(y)
     return _group_norm_out(params, y, g, xt.dtype), s_new.to(wkv_state.dtype), xt
 
 
 def rwkv_channel_mix_step(params: dict, cfg, xt: torch.Tensor, x_prev: torch.Tensor):
     """One-token channel mix.  xt: (B, d) (post-norm).  Returns ``(out, xt)``."""
-    xs = x_prev.to(xt.dtype)
-    dt = xt.dtype
-    k = _mix(xt, xs, params["mu_ck"]) @ params["ck"].to(dt)
-    r = torch.sigmoid(_mix(xt, xs, params["mu_cr"]) @ params["cr"].to(dt))
-    return r * (torch.relu(k).square() @ params["cv"].to(dt)), xt
+    return _channel_mix(params, cfg, xt, x_prev.to(xt.dtype)), xt

@@ -13,6 +13,12 @@ one hand-written kernel for the whole sequence, where JAX runs
 ``lax.scan``, and under autograd its backward kernel; on the CPU its plain
 per-step loop.  Decode is one state update in plain
 PyTorch, as JAX's is plain ``jnp``.
+
+Under a model axis (``distributed.tensor_parallel``) the block's weights
+are replicated (the rules leave them whole), so its projections are
+computed whole on every model rank, as GSPMD does; the scan runs on the
+rank's heads, as JAX's ``head_shard`` pins them, when the axis divides
+them, and decode updates the rank's heads of ``h``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.recurrence.ops import ssd_scan_logdec
 from repro_torch.models.layers import init_dense, normal
 
@@ -98,7 +105,13 @@ def mamba_seq(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     dt_act, log_decay = _dt_decay(params, dt)  # (B, S, heads)
     xh = xi.reshape(bsz, s, heads, HEAD_DIM).float()
     dtx = dt_act[..., None] * xh
-    y = ssd_scan_logdec(log_decay, dtx, b.float(), c.float())  # (B, S, heads, 64)
+    if tp.splits(heads):
+        # the scan on the rank's heads: B and C are every head's (their
+        # gradients summed over the axis), y gathered
+        bc = tp.copy_to(torch.stack([b.float(), c.float()]))
+        y = tp.gather(ssd_scan_logdec(tp.split(log_decay, 2), tp.split(dtx, 2), bc[0], bc[1]), 2)
+    else:
+        y = ssd_scan_logdec(log_decay, dtx, b.float(), c.float())  # (B, S, heads, 64)
     y = y + params["d_skip"].float()[None, None, :, None] * xh
     y = y.reshape(bsz, s, d_inner).to(dt_) * F.silu(z)
     return y @ params["w_out"].to(dt_)
@@ -120,8 +133,14 @@ def mamba_decode_step(params: dict, cfg, x: torch.Tensor, state: dict):
     decay = torch.exp(log_decay)
     xh = xi.reshape(bsz, heads, HEAD_DIM).float()
     h = state["h"].float()
-    h = h * decay[..., None, None] + (dt_act[..., None] * xh)[..., None] * b.float()[:, None, None, :]
+    xl = xh
+    if h.shape[1] != heads:  # the rank's heads of the state
+        lo, hi = tp.local_range(heads)
+        decay, dt_act, xl = decay[:, lo:hi], dt_act[:, lo:hi], xh[:, lo:hi]
+    h = h * decay[..., None, None] + (dt_act[..., None] * xl)[..., None] * b.float()[:, None, None, :]
     y = torch.einsum("bhds,bs->bhd", h, c.float())
+    if h.shape[1] != heads:
+        y = tp.gather(y, 1)
     y = y + params["d_skip"].float()[None, :, None] * xh
     y = y.reshape(bsz, d_inner).to(dt_) * F.silu(z)
     out = (y @ params["w_out"].to(dt_))[:, None]

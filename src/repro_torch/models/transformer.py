@@ -43,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.attention import (
     Attention,
     attention,
@@ -233,7 +234,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Transformer
 
 
 def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return moe_layer(lp, cfg, h) if cfg.is_moe else swiglu(lp, h)
+    return moe_layer(lp, cfg, h) if cfg.is_moe else swiglu(lp, h, cfg.d_ff)
 
 
 def layer_body(lp: dict, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True):
@@ -252,7 +253,7 @@ def _rwkv_layer_seq(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
 def _shared_block(shared: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The hybrid's shared attention + SwiGLU block over a full sequence."""
     x = x + attention(shared["attn"], cfg, rms_norm(x, shared["ln1"], cfg.norm_eps), causal=True)
-    return x + swiglu(shared["ffn"], rms_norm(x, shared["ln2"], cfg.norm_eps))
+    return x + swiglu(shared["ffn"], rms_norm(x, shared["ln2"], cfg.norm_eps), cfg.d_ff)
 
 
 def _applies_shared(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -270,7 +271,7 @@ def _hybrid_layer_seq(lp: dict, cfg: ModelConfig, x: torch.Tensor, shared: dict 
 
 def _enc_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = x + attention(lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), causal=False)
-    return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.d_ff)
 
 
 def _dec_cross_layer(lp: dict, cp: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -279,7 +280,7 @@ def _dec_cross_layer(lp: dict, cp: dict, cfg: ModelConfig, x: torch.Tensor,
     kv = compute_kv(cp["attn"], cfg, enc_out)
     x = x + attention(cp["attn"], cfg, rms_norm(x, cp["ln"], cfg.norm_eps), causal=False,
                       kv_override=kv, rope=False)
-    return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.d_ff)
 
 
 # Selective checkpointing for remat "dots": keep the outputs of 2-D matrix
@@ -367,7 +368,7 @@ def forward_params(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     JAX slices the prefix off the logits; the port slices it off before the
     final norm and the head, which are per row, so the values are the same."""
     emb = params["embed"]["emb"]
-    x = emb[_as_tokens(batch["tokens"], emb.device)].to(cfg.dtype)
+    x = tp.vocab_embed(emb, _as_tokens(batch["tokens"], emb.device), cfg).to(cfg.dtype)
     if cfg.is_encoder_decoder:
         x = _run_decoder_with_cross(params, cfg, x, _run_encoder(params, cfg, batch["frames"]))
     else:
@@ -378,16 +379,14 @@ def forward_params(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         x = _run_stack(params, cfg, x)[:, n_prefix:]
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     head = emb if cfg.tie_embeddings else params["lm_head"]["emb"]
-    logits = x @ head.to(x.dtype).T
-    return _mask_padded_vocab(logits, cfg)
+    return _mask_padded_vocab(tp.vocab_head(x, head, cfg), cfg)
 
 
 def _mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Subtract 1e9 from the padded vocabulary's logits, in place: JAX writes a
     masked copy (12 GB at B=2, S=32768); the values are the same, since the
-    other entries lose 0."""
-    logits[..., cfg.vocab_size:] -= 1e9
-    return logits
+    other entries lose 0.  On the rank's vocabulary shard, at global indices."""
+    return tp.mask_padded_vocab(logits, cfg)
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -395,12 +394,17 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return forward_params(model.params(), cfg, batch)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels, *, z_loss: float = 1e-4) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels, *, z_loss: float = 1e-4,
+                       vocab: int | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy with z-loss, in float32; labels of -100
-    (any negative label) are ignored."""
+    (any negative label) are ignored.  ``vocab`` is the logits' full width
+    (``cfg.padded_vocab``): narrower logits are the rank's vocabulary shard,
+    and the loss is ``tensor_parallel.vocab_cross_entropy``'s."""
     if isinstance(labels, np.ndarray):
         labels = torch.from_numpy(labels)
     labels = labels.to(device=logits.device, dtype=torch.long)
+    if vocab is not None and logits.shape[-1] != vocab:
+        return tp.vocab_cross_entropy(logits, labels, z_loss=z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels >= 0
@@ -484,6 +488,16 @@ def fill_cross_cache(model: Transformer, cfg: ModelConfig, frames, state: dict) 
     return state
 
 
+def _decode_attn(key: str, params: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, **kw):
+    """``decode_attention``, or over the rank's window of a cache whose
+    sequence the model axis shards (``distributed.decode``)."""
+    if tp.windowed(key):
+        from repro_torch.distributed.decode import window_decode_attention
+
+        return window_decode_attention(params, cfg, x, cache_k, cache_v, pos, **kw)
+    return decode_attention(params, cfg, x, cache_k, cache_v, pos, **kw)
+
+
 def _decode_rwkv(params: dict, cfg: ModelConfig, x: torch.Tensor, state: dict) -> torch.Tensor:
     eps = cfg.norm_eps
     for i, lp in enumerate(params["layers"]):
@@ -515,10 +529,10 @@ def _decode_hybrid(params: dict, cfg: ModelConfig, x: torch.Tensor, state: dict)
         if _applies_shared(cfg, i):
             g = i // cfg.shared_attn_every
             h = rms_norm(x[:, 0], shared["ln1"], eps)[:, None]
-            out, _, _ = decode_attention(shared["attn"], cfg, h, state["shared_k"][g],
-                                         state["shared_v"][g], pos)
+            out, _, _ = _decode_attn("shared_k", shared["attn"], cfg, h, state["shared_k"][g],
+                                     state["shared_v"][g], pos)
             x = x + out
-            x = x + swiglu(shared["ffn"], rms_norm(x, shared["ln2"], eps))
+            x = x + swiglu(shared["ffn"], rms_norm(x, shared["ln2"], eps), cfg.d_ff)
     return x
 
 
@@ -529,12 +543,13 @@ def _decode_attention_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
     eps, pos = cfg.norm_eps, state["pos"]
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["ln1"], eps)
-        out, _, _ = decode_attention(lp["attn"], cfg, h, state["k"][i], state["v"][i], pos)
+        out, _, _ = _decode_attn("k", lp["attn"], cfg, h, state["k"][i], state["v"][i], pos)
         x = x + out
         if cfg.is_encoder_decoder:
             cp, xk, xv = params["cross"][i], state["cross_k"][i], state["cross_v"][i]
-            out, _, _ = decode_attention(cp["attn"], cfg, rms_norm(x, cp["ln"], eps), xk, xv,
-                                         xk.shape[1] - 1, update_cache=False, rope=False)
+            last = xk.shape[1] * (tp.size() if tp.windowed("cross_k") else 1) - 1
+            out, _, _ = _decode_attn("cross_k", cp["attn"], cfg, rms_norm(x, cp["ln"], eps), xk,
+                                     xv, last, update_cache=False, rope=False)
             x = x + out
         x = x + _ffn(lp["ffn"], cfg, rms_norm(x, lp["ln2"], eps))
     return x
@@ -550,7 +565,7 @@ def decode_step(model: Transformer, cfg: ModelConfig, tokens, state: dict):
     """
     params = model.params()
     tokens = _as_tokens(tokens, model.embed.device)
-    x = model.embed[tokens][:, None].to(cfg.dtype)
+    x = tp.vocab_embed(model.embed, tokens, cfg)[:, None].to(cfg.dtype)
     if cfg.rwkv:
         x = _decode_rwkv(params, cfg, x, state)
     elif cfg.family == "hybrid":
@@ -560,5 +575,5 @@ def decode_step(model: Transformer, cfg: ModelConfig, tokens, state: dict):
     state["pos"] += 1
     x = model.final_ln(x, cfg.norm_eps)
     head = model.embed if cfg.tie_embeddings else model.lm_head
-    logits = (x[:, 0] @ head.to(x.dtype).T).float()
+    logits = tp.vocab_head(x[:, 0], head, cfg).float()
     return _mask_padded_vocab(logits, cfg), state

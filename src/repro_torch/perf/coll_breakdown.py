@@ -16,10 +16,10 @@ them in one of two ways:
   (kind, input shape, group) and ranked by the ring bytes a rank moves
   (``perf.coll_stats.ring_bytes``).
 * the command line prints the same table for a production cell from the
-  sharded step's closed form (``launch.dryrun``'s records).  The port
-  cannot start the 256 or 512 ranks of a production mesh, so a trace of
-  one does not exist; the closed form is what the tests and the card
-  check hold to the trace of a small group.
+  calls one rank's step records on ``meta`` (``launch.dryrun``'s records).
+  The port cannot start the 256 or 512 ranks of a production mesh, so a
+  trace of one does not exist; the tests and the card check hold the
+  recorded calls to the trace of a small group.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ def records_from_trace(trace) -> list[dict]:
     """One record per labelled collective call in a chrome trace (a path, a
     JSON string or the loaded dict): ``{"kind", "axes", "group", "shape",
     "dtype", "result_bytes"}``; the result of an all-gather is its gathered
-    output, of the others their input."""
+    output, of a reduce-scatter its scattered output (its input over the
+    group), of the others their input."""
     if isinstance(trace, (str, Path)) and not str(trace).lstrip().startswith("{"):
         trace = Path(trace).read_text()
     if isinstance(trace, str):
@@ -67,8 +68,9 @@ def records_from_trace(trace) -> list[dict]:
         shape = tuple(args["Input Dims"][0])
         dtype = args["Input type"][0]
         nbytes = math.prod(shape) * _ITEMSIZE[dtype]
+        result = {"all-gather": nbytes * group, "reduce-scatter": nbytes / group}.get(kind, nbytes)
         out.append({"kind": kind, "axes": axes, "group": group, "shape": shape, "dtype": dtype,
-                    "result_bytes": float(nbytes * group if kind == "all-gather" else nbytes)})
+                    "result_bytes": float(result)})
     return out
 
 
@@ -112,7 +114,7 @@ def main(argv=None) -> None:
     records: list[dict] = []
     dryrun.dryrun_cell(get_config(arch), SHAPES[shape], dryrun.PRODUCTION_MESHES[False],
                        arch=arch, calls=records)
-    print(f"{arch} x {shape} x 16x16, the sharded step's closed form (one rank)")
+    print(f"{arch} x {shape} x 16x16, the calls one rank's step records on meta")
     print_table(*rows_from_records(records, top_n))
 
 

@@ -2,8 +2,8 @@
 
 JAX's module parses the collectives out of XLA's compiled HLO text.  The
 port has no HLO: its collectives are the calls its sharded step makes
-itself (``distributed.sharded_step.step_collectives`` gives them in closed
-form; ``perf.coll_breakdown`` reads them from a ``torch.profiler`` trace).
+itself (a rank's run on ``meta`` records them, ``launch.dryrun.rank_collectives``;
+``perf.coll_breakdown`` reads them from a ``torch.profiler`` trace).
 Either way they arrive as records ``{"kind", "result_bytes", "group"}``,
 one per collective call, with JAX's kind names (``all-gather``,
 ``all-reduce``, ``reduce-scatter``, ``all-to-all``, ``collective-permute``)

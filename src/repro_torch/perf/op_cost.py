@@ -35,7 +35,7 @@ Conventions:
   count.  The peak is not multiplied: microbatches run one after another.
 
 The collectives are not ATen ops of a rank's step on ``meta``: the dry run
-adds them from the sharded step's closed form (``add_collectives``).
+adds the calls that step records (``add_collectives``).
 """
 
 from __future__ import annotations

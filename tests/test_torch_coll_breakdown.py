@@ -7,9 +7,10 @@
 * on 4 gloo CPU ranks (``tests/torch_coll_ranks.py``, started as
   ``tests/test_torch_distributed_lm.py`` starts its ranks), a reduced
   config's ``sharded_train_step`` under ``torch.profiler``: ``breakdown`` of
-  rank 0's trace gives the closed form's calls, kind by kind, with their
-  counts, result bytes, groups and mesh axes (bf16 weights in a (2, 2) "2d"
-  mesh with 2 microbatches; float32 under "dp_only").
+  rank 0's trace gives the calls the dry run's rank records for the same
+  step on ``meta`` (``launch.dryrun.rank_collectives``), kind by kind, with
+  their counts, result bytes, groups and mesh axes (bf16 weights in a (2, 2)
+  "2d" mesh with 2 microbatches; float32 under "dp_only").
 """
 
 import math

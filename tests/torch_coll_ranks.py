@@ -14,19 +14,21 @@ RUNS = (("2d-bf16-mb2", "2d", 2, torch.bfloat16), ("dp_only-f32", "dp_only", 1, 
 def profiled_steps(workdir: str) -> dict:
     """For each of ``RUNS``: two steps of ``sharded_train_step`` on a (2, 2)
     mesh, the second under ``torch.profiler``; rank 0 writes its chrome
-    trace to ``workdir`` and returns the paths and the closed form's records."""
+    trace to ``workdir`` and returns the paths and the calls the dry run's
+    rank records on ``meta`` for the same step (``launch.dryrun.rank_collectives``)."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import registry as treg
     from repro_torch.distributed.layout import layout_scope
-    from repro_torch.distributed.sharded_step import sharded_train_step, step_collectives
+    from repro_torch.distributed.sharded_step import sharded_train_step
     from repro_torch.distributed.sharding import (
         batch_shardings,
         shard_state,
         train_state_shardings,
     )
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape, make_mesh
     from repro_torch.models import model_zoo as zoo
     from repro_torch.optim import AdamW, init_adamw_state
 
@@ -46,7 +48,10 @@ def profiled_steps(workdir: str) -> dict:
             sstate, _ = step(sstate, batch)
             with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
                 sstate, _ = step(sstate, batch)
-            records = step_collectives(cfg, state["params"], ssh["params"], mesh, bsh)
+            c = dict(state=state, specs=ssh, bsh=bsh, n_ub=mb,
+                     batch={k: torch.from_numpy(v) for k, v in batch.items()})
+            records = dryrun.rank_collectives(cfg, "train", c,
+                                              MeshShape((2, 2), ("data", "model")))
         if rank == 0:
             path = f"{workdir}/{label}.json"
             prof.export_chrome_trace(path)
